@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Build the PyTorch/CUDA port's kernels and drive its FT.SEARCH KNN path on one GPU.
+"""Build the PyTorch/CUDA port's kernels and drive its FT.SEARCH path on one GPU.
 
 Run from the root of a checkout, on a machine with an NVIDIA H100:
 
@@ -8,16 +8,29 @@ Run from the root of a checkout, on a machine with an NVIDIA H100:
 Phases (each failure exits non-zero; there is no CPU path):
 
 1. device   - requires a CUDA device, selects it, prints name and power limit;
-2. build    - nvcc builds K1 and K2 from valkey_search_tpu_torch/csrc/;
-3. kernels  - each kernel against its plain PyTorch version at B = 256 and
-              N = 1,048,576: K1 keys bit-identical, K2 idx agreeing on >= 99%
-              of columns and vals within rtol 4e-5, atol 1e-2;
-4. slice    - FT.CREATE + 1,000,000 HSETs (the bench's seeded SIFT-like
-              recipe) + FT.SEARCH KNN 10 from 16 threads, under int8 (K1,
-              pre_shift > 0) and bfloat16 (K2), and a 200,000-row int8 index
-              (K1, pre_shift = 0); recall@10 against fp64 ground truth, the
-              kernels' launch counts, DEL and update visibility, latency and
-              search_batch QPS.
+2. build    - one nvcc per source, all at once: K1 and K3
+              (bucket_scan_i8_packed.cu) and K2 (bucket_scan_bf16.cu); the
+              native text tier (g++) builds beside them;
+3. kernels  - each kernel against its plain PyTorch version at
+              N = 1,048,576: B = 256 with 5% of the rows excluded, and K1
+              (both bodies) and K2 also at B = 1 with 99% excluded, as a
+              hybrid request under a 1% filter gives them; K1 keys and K3
+              vals/idx bit-identical, K2 idx agreeing on >= 99% of columns
+              and vals within rtol 4e-5, atol 1e-2;
+4. slice    - FT.CREATE (v VECTOR FLAT, cat TAG, price NUMERIC) + 1,000,000
+              HSETs of all three fields (the bench's seeded SIFT-like recipe,
+              seeded tags and prices) + FT.SEARCH KNN 10 from 16 threads,
+              under int8 (K1, pre_shift > 0) and bfloat16 (K2): unfiltered,
+              then hybrid under a tag (~1%), two price ranges (~10%, ~50%)
+              and their conjunction (~0.5%); and a 200,000-row int8 index
+              with a TEXT field (K1, pre_shift = 0), unfiltered and under a
+              text filter. recall@10 against fp64 ground truth restricted to
+              the qualified rows, no key outside a filter, the kernels'
+              launch counts, non-vector counts and SORTBY, DEL and update
+              visibility (the tag mask cache included), latency and
+              search_batch QPS; and where a hybrid request's time goes
+              (profile_hybrid: 1 against 16 threads, the GIL switch
+              interval, torch.profiler's device time per request).
 
 The next-to-last line is the card's name and power limit as nvidia-smi gives
 them; the line before it the kernels' JSON record; the last line the result.
@@ -30,6 +43,7 @@ import subprocess
 import sys
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -37,6 +51,8 @@ D = 128
 N_BIG = 1_000_000
 N_SMALL = 200_000
 N_CENTERS = 1024
+N_CATS = 100
+N_WORDS = 40  # the 200k index's title vocabulary
 N_QUERIES = 1024
 N_GT = 256
 K = 10
@@ -44,6 +60,7 @@ RECALL_FLOOR = 0.99
 THREADS = 16
 KERNEL_B = 256
 KERNEL_N = 1_048_576
+QPS_BATCHES = (1024, 16384)
 
 
 class SmokeFailure(RuntimeError):
@@ -92,15 +109,31 @@ def sift_like(n: int, n_queries: int, seed: int = 42):
     return corpus, queries
 
 
-def fp64_gt(torch, corpus, queries, k: int, device) -> np.ndarray:
-    """Exact neighbours in float64 on the card (||c||^2 - 2 c.q ordering)."""
-    c = torch.as_tensor(corpus, dtype=torch.float64, device=device)
-    csq = (c * c).sum(1)
+def seeded_fields(n: int, seed: int = 7):
+    """The 1M index's TAG and NUMERIC values, seeded and independent of the
+    vectors: category ids in [0, 100) and prices in [0, 1000)."""
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, N_CATS, n), rng.integers(0, 1000, n)
+
+
+def seeded_titles(n: int, seed: int = 11) -> np.ndarray:
+    """The 200k index's titles: 4 words each of a fixed vocabulary (w00 ..
+    w39, too short to stem), as word ids [n, 4]."""
+    return np.random.default_rng(seed).integers(0, N_WORDS, (n, 4))
+
+
+def fp64_gt(torch, c64, csq, queries, k: int, device,
+            allowed=None) -> np.ndarray:
+    """Exact neighbours in float64 on the card (||c||^2 - 2 c.q ordering)
+    among the rows ``allowed`` (bool [n]; all rows when None)."""
+    bad = None if allowed is None else torch.as_tensor(~allowed, device=device)
     out = []
     for q0 in range(0, len(queries), 64):
         q = torch.as_tensor(queries[q0:q0 + 64], dtype=torch.float64,
                             device=device)
-        dd = csq[None, :] - 2.0 * (q @ c.T)
+        dd = csq[None, :] - 2.0 * (q @ c64.T)
+        if bad is not None:
+            dd = dd.masked_fill(bad[None, :], float("inf"))
         out.append(torch.topk(dd, k, largest=False).indices.cpu().numpy())
     return np.concatenate(out)
 
@@ -138,9 +171,22 @@ def kernel_phase(torch, bs, dev, gpu: str) -> dict:
     gen = torch.Generator(device=dev)
     gen.manual_seed(7)
     records = {}
-    b, n = KERNEL_B, KERNEL_N
+    n = KERNEL_N
     n_rows = n - 1000  # the tail is padding: zero rows, SENTINEL bias
-    for span, d in ((1, 128), (8, 128), (4, 256), (8, 768)):
+
+    def excluded_rows(kept: float):
+        """bool [n]: rows outside a filter that keeps ``kept`` of them, and
+        the padded tail."""
+        out = torch.rand((n,), generator=gen, device=dev) >= kept
+        out[n_rows:] = True
+        return out
+
+    # B = 256 with 5% excluded rows (batched unfiltered KNN), then B = 1
+    # with 99% excluded (a hybrid request: one launch per request, a 1%
+    # filter folded into the bias, mostly excluded buckets)
+    for b, span, d, kept in ((KERNEL_B, 1, 128, 0.95), (KERNEL_B, 8, 128, 0.95),
+                             (KERNEL_B, 4, 256, 0.95), (KERNEL_B, 8, 768, 0.95),
+                             (1, 1, 128, 0.01), (1, 8, 128, 0.01)):
         q = torch.randint(-127, 128, (b, d), generator=gen, device=dev,
                           dtype=torch.int8)
         c = torch.randint(-127, 128, (n_rows, d), generator=gen, device=dev,
@@ -149,9 +195,8 @@ def kernel_phase(torch, bs, dev, gpu: str) -> dict:
         dotmax, clamp, sentinel, pre_shift, _ = bs.i8_packed_layout(d_pad, span)
         bias = torch.randint(0, clamp, (n,), generator=gen, device=dev,
                              dtype=torch.int32) + dotmax
-        excluded = torch.rand((n,), generator=gen, device=dev) < 0.05
-        excluded[n_rows:] = True
-        bias = torch.where(excluded, torch.full_like(bias, sentinel), bias)
+        bias = torch.where(excluded_rows(kept),
+                           torch.full_like(bias, sentinel), bias)
         got = bs.bucket_min_scan_i8_packed(q, c, bias, span)
         torch.cuda.synchronize()
         want = bs.bucket_min_scan_i8_packed_plain(q, c, bias, span)
@@ -162,19 +207,21 @@ def kernel_phase(torch, bs, dev, gpu: str) -> dict:
         plain_ms = time_ms(
             torch, lambda: bs.bucket_min_scan_i8_packed_plain(q, c, bias, span),
             reps=2)
-        log(f"K1 span={span} d={d} pre_shift={pre_shift} B={b} N={n}: "
-            f"bit-identical={same} (mismatches {n_bad}), kernel {ms:.3f} ms, "
-            f"plain {plain_ms:.3f} ms", gpu)
-        check(same, f"K1 span={span} d={d}: {n_bad} keys differ from plain")
+        log(f"K1 span={span} d={d} pre_shift={pre_shift} B={b} N={n} "
+            f"kept={kept}: bit-identical={same} (mismatches {n_bad}), kernel "
+            f"{ms:.3f} ms, plain {plain_ms:.3f} ms", gpu)
+        check(same, f"K1 B={b} span={span} d={d}: {n_bad} keys differ from "
+              "plain")
         name = ("bucket_scan_i8_packed[pre_shift=0]" if pre_shift == 0
                 else "bucket_scan_i8_packed[pre_shift>0]")
-        # the main path's shape (d 128) is the one recorded
-        if d == 128:
+        # the main path's dim (128) at B = 256 is the one recorded
+        if d == 128 and b == KERNEL_B:
             records[name] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms}
         del q, c, bias, got, want
 
     d = 128
-    for positive in (True, False):
+    for b, positive, kept in ((KERNEL_B, True, 0.95), (KERNEL_B, False, 0.95),
+                              (1, True, 0.01)):
         qf = torch.randn((b, d), generator=gen, device=dev)
         cf = torch.randn((n_rows, d), generator=gen, device=dev)
         alpha = -2.0 if positive else -1.0
@@ -184,9 +231,8 @@ def kernel_phase(torch, bs, dev, gpu: str) -> dict:
                else torch.zeros(b, device=dev)).contiguous()
         bias = torch.zeros(n, device=dev)
         bias[:n_rows] = (cf * cf).sum(1) if positive else 0.0
-        excluded = torch.rand((n,), generator=gen, device=dev) < 0.05
-        excluded[n_rows:] = True
-        bias = torch.where(excluded, torch.full_like(bias, float("inf")), bias)
+        bias = torch.where(excluded_rows(kept),
+                           torch.full_like(bias, float("inf")), bias)
         vals, idx = bs.bucket_min_scan(q, qsq, c, bias, positive)
         torch.cuda.synchronize()
         pv, pi = bs.bucket_min_scan_plain(q, qsq, c, bias, positive)
@@ -204,15 +250,52 @@ def kernel_phase(torch, bs, dev, gpu: str) -> dict:
         plain_ms = time_ms(
             torch, lambda: bs.bucket_min_scan_plain(q, qsq, c, bias, positive),
             reps=2)
-        log(f"K2 positive={positive} B={b} N={n}: idx agree {frac:.6f}, "
-            f"max |dval| {err:.6g} where idx agree, kernel {ms:.3f} ms, "
-            f"plain {plain_ms:.3f} ms", gpu)
-        check(frac >= 0.99, f"K2 idx agreement {frac} < 0.99")
-        check(tol_ok and inf_ok, "K2 vals outside rtol 4e-5, atol 1e-2")
-        if positive:  # l2, the main path's case
+        log(f"K2 positive={positive} B={b} N={n} kept={kept}: idx agree "
+            f"{frac:.6f}, max |dval| {err:.6g} where idx agree, kernel "
+            f"{ms:.3f} ms, plain {plain_ms:.3f} ms", gpu)
+        check(frac >= 0.99, f"K2 B={b} idx agreement {frac} < 0.99")
+        check(tol_ok and inf_ok, f"K2 B={b} vals outside rtol 4e-5, atol 1e-2")
+        if positive and b == KERNEL_B:  # l2, the main path's case
             records["bucket_scan_bf16"] = {
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
         del qf, cf, q, c, bias, vals, idx, pv, pi
+
+    # K3 has no search path: its launches here are counted apart from the
+    # main path's
+    b = KERNEL_B
+    k3_before = bs.launch_counts()["bucket_scan_i8"]
+    for d in (128, 768):
+        q = torch.randint(-127, 128, (b, d), generator=gen, device=dev,
+                          dtype=torch.int8)
+        c = torch.randint(-127, 128, (n_rows, d), generator=gen, device=dev,
+                          dtype=torch.int8)
+        clamp, sentinel, pre_shift, _ = bs.i8_layout(d)
+        # no +DOTMAX offset: small biases make many scores negative
+        bias = torch.randint(0, clamp // 64, (n,), generator=gen, device=dev,
+                             dtype=torch.int32)
+        bias = torch.where(excluded_rows(0.95),
+                           torch.full_like(bias, sentinel), bias)
+        vals, idx = bs.bucket_min_scan_i8(q, c, bias)
+        torch.cuda.synchronize()
+        pv, pi = bs.bucket_min_scan_i8_plain(q, c, bias)
+        torch.cuda.synchronize()
+        same = bool(torch.equal(vals.view(torch.int32), pv.view(torch.int32))
+                    and torch.equal(idx, pi))
+        n_bad = int((idx != pi).sum()) + int((vals != pv).sum())
+        negative = bool((vals < 0).any())
+        ms = time_ms(torch, lambda: bs.bucket_min_scan_i8(q, c, bias))
+        plain_ms = time_ms(
+            torch, lambda: bs.bucket_min_scan_i8_plain(q, c, bias), reps=2)
+        log(f"K3 d={d} pre_shift={pre_shift} B={b} N={n}: bit-identical="
+            f"{same} (mismatches {n_bad}), negative scores {negative}, "
+            f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms", gpu)
+        check(same, f"K3 d={d}: {n_bad} vals/idx differ from plain")
+        if d == 128:  # the shape K1's record is taken at
+            records["bucket_scan_i8"] = {"max_abs_err": 0.0, "ms": ms,
+                                         "plain_ms": plain_ms}
+        del q, c, bias, vals, idx, pv, pi
+    records["bucket_scan_i8"]["check_launches"] = (
+        bs.launch_counts()["bucket_scan_i8"] - k3_before)
     torch.cuda.empty_cache()
     return records
 
@@ -222,18 +305,28 @@ def kernel_phase(torch, bs, dev, gpu: str) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def ingest(engine, prefix: str, rows: np.ndarray, gpu: str) -> None:
+def ingest(engine, prefix: str, rows: np.ndarray, fields, gpu: str) -> None:
+    """HSET every row with its vector and ``fields`` [(name, [str] per
+    row)], all in one command per key."""
     t0 = time.perf_counter()
     for i in range(len(rows)):
-        engine.execute("HSET", f"{prefix}{i}", "v", rows[i].tobytes())
+        argv = ["HSET", f"{prefix}{i}", "v", rows[i].tobytes()]
+        for name, values in fields:
+            argv += [name, values[i]]
+        engine.execute(*argv)
     dt = time.perf_counter() - t0
-    log(f"HSET {len(rows)} rows under {prefix!r}: {dt:.1f} s "
+    log(f"HSET {len(rows)} rows under {prefix!r} (v + "
+        f"{', '.join(name for name, _ in fields)}): {dt:.1f} s "
         f"({dt / len(rows) * 1e6:.1f} us/row)", gpu)
 
 
-def search_all(engine, index: str, queries: np.ndarray):
-    """FT.SEARCH every query from THREADS threads; returns (doc ids [n, K]
-    as ints parsed from the keys, scores, per-request latencies in s)."""
+def knn(flt: str, k: int = K) -> str:
+    return f"{flt}=>[KNN {k} @v $q]"
+
+
+def search_all(engine, index: str, queries: np.ndarray, flt: str = "*"):
+    """FT.SEARCH every query from THREADS threads; returns (the keys of
+    each reply, per-request latencies in s)."""
     n = len(queries)
     keys = [None] * n
     lat = [0.0] * n
@@ -244,9 +337,8 @@ def search_all(engine, index: str, queries: np.ndarray):
             for i in range(tid, n, THREADS):
                 t0 = time.perf_counter()
                 reply = engine.execute(
-                    "FT.SEARCH", index, f"*=>[KNN {K} @v $q]",
-                    "PARAMS", "2", "q", queries[i].tobytes(), "NOCONTENT",
-                    "LIMIT", "0", str(K),
+                    "FT.SEARCH", index, knn(flt), "PARAMS", "2", "q",
+                    queries[i].tobytes(), "NOCONTENT", "LIMIT", "0", str(K),
                 )
                 lat[i] = time.perf_counter() - t0
                 keys[i] = reply[1:]
@@ -273,26 +365,36 @@ def key_ids(keys, prefix: str) -> np.ndarray:
 
 
 def run_searches(torch, engine, bs, index, prefix, queries, gt, dtype,
-                 expect, gpu: str, stats: dict):
+                 expect, gpu: str, stats: dict, flt: str = "*",
+                 allowed=None):
+    """FT.SEARCH ``queries`` under ``flt`` from THREADS threads with the
+    launch counts set to 0 just before; checks recall against ``gt``, that
+    every kernel in ``expect`` launched, and that no key lies outside
+    ``allowed`` (bool [n] of the rows the filter qualifies)."""
     engine.config_set("search.corpus-dtype", dtype)
     # publish the mirror for this dtype before counting (not timed)
-    engine.execute("FT.SEARCH", index, f"*=>[KNN {K} @v $q]", "PARAMS", "2",
+    engine.execute("FT.SEARCH", index, knn(flt), "PARAMS", "2",
                    "q", queries[0].tobytes(), "NOCONTENT")
     bs.reset_launches()
-    keys, lat = search_all(engine, index, queries)
+    keys, lat = search_all(engine, index, queries, flt)
     counts = bs.launch_counts()
     ids = key_ids(keys, prefix)
     r = recall(ids[:len(gt)], gt)
+    outside = 0 if allowed is None else int((~allowed[ids[ids >= 0]]).sum())
     p50, p99 = np.percentile(lat, 50) * 1e3, np.percentile(lat, 99) * 1e3
-    log(f"FT.SEARCH {index} corpus-dtype={dtype}: {len(queries)} queries "
-        f"from {THREADS} threads, recall@{K} {r:.4f} on {len(gt)}, "
+    log(f"FT.SEARCH {index} {knn(flt)!r} corpus-dtype={dtype}: "
+        f"{len(queries)} queries from {THREADS} threads, recall@{K} "
+        f"{r:.4f} on {len(gt)}, {outside} keys outside the filter, "
         f"p50 {p50:.3f} ms, p99 {p99:.3f} ms, launches {counts}", gpu)
-    check(r >= RECALL_FLOOR, f"{index}/{dtype}: recall {r} < {RECALL_FLOOR}")
+    check(r >= RECALL_FLOOR, f"{index}/{dtype}/{flt}: recall {r} < "
+          f"{RECALL_FLOOR}")
+    check(outside == 0, f"{index}/{dtype}/{flt}: {outside} keys outside")
     for name, count in counts.items():
         if name in expect:
-            check(count > 0, f"{index}/{dtype}: {name} never launched")
+            check(count > 0, f"{index}/{dtype}/{flt}: {name} never launched")
             stats["launches"][name] = stats["launches"].get(name, 0) + count
-    stats[f"{index}/{dtype}"] = {"recall": r, "p50_ms": p50, "p99_ms": p99}
+    stats[f"{index}/{dtype}/{flt}"] = {"recall": r, "p50_ms": p50,
+                                       "p99_ms": p99}
     return keys
 
 
@@ -307,28 +409,143 @@ def batch_qps(torch, index, queries: np.ndarray, b: int) -> float:
     return reps * b / (time.perf_counter() - t0)
 
 
-def slice_phase(torch, bs, gpu: str) -> dict:
+def profile_hybrid(torch, engine, queries: np.ndarray, gpu: str,
+                   stats: dict, flt: str = "@cat:{c7}") -> None:
+    """Where a hybrid request's time goes, under each dtype: one request at
+    a time on the host clock; 16 threads at the default GIL switch interval
+    and at 0.1 ms (a convoy on the GIL shows as throughput that rises when
+    the interval falls); and torch.profiler over 10 requests (device time
+    and device operations per request, the costliest kernels)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def one(i: int) -> None:
+        engine.execute("FT.SEARCH", "idx", knn(flt), "PARAMS", "2", "q",
+                       queries[i].tobytes(), "NOCONTENT")
+
+    for dtype in ("int8", "bfloat16"):
+        engine.config_set("search.corpus-dtype", dtype)
+        one(0)  # publish the mirror for this dtype (not timed)
+        lat = []
+        for i in range(64):
+            t0 = time.perf_counter()
+            one(i)
+            lat.append(time.perf_counter() - t0)
+        rec = {"alone_p50_ms": float(np.percentile(lat, 50)) * 1e3,
+               "alone_rps": len(lat) / sum(lat)}
+        default = sys.getswitchinterval()
+        for interval in (default, 1e-4):
+            sys.setswitchinterval(interval)
+            try:
+                t0 = time.perf_counter()
+                _, lat16 = search_all(engine, "idx", queries, flt)
+                wall = time.perf_counter() - t0
+            finally:
+                sys.setswitchinterval(default)
+            rec[f"threads16_rps@{interval}"] = len(queries) / wall
+            rec[f"threads16_p50_ms@{interval}"] = (
+                float(np.percentile(lat16, 50)) * 1e3)
+        reps = 10
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for i in range(reps):
+                one(i)
+            torch.cuda.synchronize()
+        dev_events = [e for e in prof.events()
+                      if e.device_type == DeviceType.CUDA
+                      and not e.is_user_annotation]
+        by_name: dict = {}
+        for e in dev_events:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+        rec["device_ms_per_request"] = (
+            sum(by_name.values()) / reps / 1e3)
+        rec["device_ops_per_request"] = len(dev_events) / reps
+        rec["top_device_ms_per_request"] = {
+            name[:60]: us / reps / 1e3 for name, us in top}
+        log(f"profile {flt!r} corpus-dtype={dtype}: " + json.dumps(rec), gpu)
+        stats[f"profile/{dtype}/{flt}"] = rec
+
+
+def hybrid_mutations(engine, corpus, queries, gpu: str) -> None:
+    """Under each dtype: a doc moved from c7 to c8 leaves the c7 KNN and
+    joins the c8 one (the tag mask cache on the card); a deleted doc does
+    not come back."""
+    for j, dtype in enumerate(("int8", "bfloat16")):
+        engine.config_set("search.corpus-dtype", dtype)
+        q = queries[j].tobytes()
+
+        def c7():
+            return engine.execute("FT.SEARCH", "idx", knn("@cat:{c7}"),
+                                  "PARAMS", "2", "q", q, "NOCONTENT")[1:]
+
+        moved = c7()[0]
+        engine.execute("HSET", moved, "cat", "c8")
+        back = moved in c7()
+        own = corpus[int(moved[len("doc:"):])].tobytes()
+        found = engine.execute("FT.SEARCH", "idx", knn("@cat:{c8}", 1),
+                               "PARAMS", "2", "q", own, "NOCONTENT")[1:]
+        gone = c7()[0]
+        check(engine.execute("DEL", gone) == 1, f"DEL {gone}")
+        back_del = gone in c7()
+        log(f"hybrid mutations ({dtype}): {moved} moved to c8: in the c7 "
+            f"KNN {back}, first of the c8 KNN on its own vector "
+            f"{found[:1] == [moved]}; {gone} deleted: in the c7 KNN "
+            f"{back_del}", gpu)
+        check(not back, f"{moved} moved to c8 still in the c7 KNN ({dtype})")
+        check(found[:1] == [moved], f"{moved} not found under c8 ({dtype})")
+        check(not back_del, f"deleted {gone} returned ({dtype})")
+
+
+def slice_phase(torch, bs, dev, gpu: str) -> dict:
     from valkey_search_tpu_torch.server.engine import Engine
 
     stats = {"launches": {}}
     t0 = time.perf_counter()
     corpus, queries = sift_like(N_BIG, N_QUERIES + 16384)
+    cats, prices = seeded_fields(N_BIG)
     small = corpus[:N_SMALL]
+    titles = seeded_titles(N_SMALL)
     log(f"data: {N_BIG} x {D} corpus + {len(queries)} queries in "
         f"{time.perf_counter() - t0:.1f} s", gpu)
-    dev = torch.device("cuda", 0)
-    gt_big = fp64_gt(torch, corpus, queries[:N_GT], K, dev)
-    gt_small = fp64_gt(torch, small, queries[:N_GT], K, dev)
     qs = queries[:N_QUERIES]
+    qs_gt = queries[:N_GT]
+    filters = [  # (filter, the rows it qualifies)
+        ("@cat:{c7}", cats == 7),
+        ("@price:[0 99]", prices < 100),
+        ("@price:[0 499]", prices < 500),
+        ("(@cat:{c7} @price:[0 499])", (cats == 7) & (prices < 500)),
+    ]
+    text_filter = ("@title:w07", (titles == 7).any(axis=1))
+    c64 = torch.as_tensor(corpus, dtype=torch.float64, device=dev)
+    csq = (c64 * c64).sum(1)
+    gt_big = fp64_gt(torch, c64, csq, qs_gt, K, dev)
+    gt_filtered = [fp64_gt(torch, c64, csq, qs_gt, K, dev, allowed)
+                   for _, allowed in filters]
+    gt_small = fp64_gt(torch, c64[:N_SMALL], csq[:N_SMALL], qs_gt, K, dev)
+    gt_text = fp64_gt(torch, c64[:N_SMALL], csq[:N_SMALL], qs_gt, K, dev,
+                      text_filter[1])
+    del c64, csq
+    torch.cuda.empty_cache()
+    for (flt, allowed) in filters + [text_filter]:
+        log(f"filter {flt!r} qualifies {int(allowed.sum())} of "
+            f"{len(allowed)} rows ({allowed.mean():.4f})", gpu)
 
     engine = Engine()
     check(engine.execute(
         "FT.CREATE", "idx", "ON", "HASH", "PREFIX", "1", "doc:", "SCHEMA",
         "v", "VECTOR", "FLAT", "6", "TYPE", "FLOAT32", "DIM", str(D),
-        "DISTANCE_METRIC", "L2") == "OK", "FT.CREATE idx")
-    ingest(engine, "doc:", corpus, gpu)
+        "DISTANCE_METRIC", "L2", "cat", "TAG", "price", "NUMERIC") == "OK",
+        "FT.CREATE idx")
+    ingest(engine, "doc:", corpus,
+           [("cat", [f"c{c}" for c in cats]),
+            ("price", [str(p) for p in prices])], gpu)
     info = engine.execute("FT.INFO", "idx")
     check(info[info.index("num_docs") + 1] == N_BIG, "FT.INFO num_docs")
+    attrs = {a[3]: a for a in info[info.index("attributes") + 1]}
+    check(all(attrs[name][7] == N_BIG for name in ("v", "cat", "price")),
+          f"FT.INFO attributes {attrs}")
 
     k1_fused = "bucket_scan_i8_packed[pre_shift=0]"
     k1_shift = "bucket_scan_i8_packed[pre_shift>0]"
@@ -341,11 +558,34 @@ def slice_phase(torch, bs, gpu: str) -> dict:
     index = engine.manager.get("idx").attribute("v").index
     for dtype in ("int8", "bfloat16"):
         engine.config_set("search.corpus-dtype", dtype)
-        for b in (1024, 16384):
+        for b in QPS_BATCHES:
             qps = batch_qps(torch, index, queries, b)
             log(f"search_batch idx corpus-dtype={dtype} B={b}: "
                 f"{qps:.1f} QPS", gpu)
             stats[f"qps/{dtype}/B={b}"] = qps
+
+    # hybrid KNN: one search_batch launch per request, the filter's mask
+    # folded into the scan's bias
+    for dtype, kernel in (("int8", k1_shift), ("bfloat16", k2)):
+        for (flt, allowed), gt in zip(filters, gt_filtered):
+            run_searches(torch, engine, bs, "idx", "doc:", qs_gt, gt, dtype,
+                         {kernel}, gpu, stats, flt=flt, allowed=allowed)
+    profile_hybrid(torch, engine, qs_gt, gpu, stats)
+
+    # non-vector queries resolve on the host
+    reply = engine.execute("FT.SEARCH", "idx", "@cat:{c7}", "LIMIT", "0",
+                           "10", "NOCONTENT")
+    want = int((cats == 7).sum())
+    log(f"FT.SEARCH idx '@cat:{{c7}}' LIMIT 0 10: total {reply[0]} "
+        f"(numpy {want}), {len(reply) - 1} keys", gpu)
+    check(reply[0] == want and len(reply) == 11, "@cat:{c7} count")
+    reply = engine.execute("FT.SEARCH", "idx", "@price:[0 99]", "SORTBY",
+                           "price", "RETURN", "1", "price")
+    got = [float(row[1]) for row in reply[2::2]]
+    log(f"FT.SEARCH idx '@price:[0 99]' SORTBY price: total {reply[0]}, "
+        f"prices {got}", gpu)
+    check(len(got) == 10 and got == sorted(got)
+          and all(0 <= p <= 99 for p in got), "SORTBY price")
 
     # DEL 1,000 returned keys; none may come back under either dtype
     deleted = list(dict.fromkeys(key for row in keys_bf16 for key in row))
@@ -365,21 +605,31 @@ def slice_phase(torch, bs, gpu: str) -> dict:
         probe = queries[-1 if dtype == "int8" else -2]
         engine.execute("HSET", target, "v", probe.tobytes())
         reply = engine.execute(
-            "FT.SEARCH", "idx", f"*=>[KNN {K} @v $q]", "PARAMS", "2", "q",
+            "FT.SEARCH", "idx", knn("*"), "PARAMS", "2", "q",
             probe.tobytes(), "RETURN", "1", "__v_score")
         dist = float(reply[2][1])
         log(f"updated {target} ({dtype}): top hit {reply[1]} at {dist}", gpu)
         check(reply[1] == target, f"updated vector not found first ({dtype})")
         check(abs(dist) <= 1e-5 * float(probe @ probe),
               f"updated vector at distance {dist}, not 0 ({dtype})")
+    hybrid_mutations(engine, corpus, queries, gpu)
 
     check(engine.execute(
         "FT.CREATE", "small", "ON", "HASH", "PREFIX", "1", "small:", "SCHEMA",
         "v", "VECTOR", "FLAT", "6", "TYPE", "FLOAT32", "DIM", str(D),
-        "DISTANCE_METRIC", "L2") == "OK", "FT.CREATE small")
-    ingest(engine, "small:", small, gpu)
+        "DISTANCE_METRIC", "L2", "title", "TEXT") == "OK", "FT.CREATE small")
+    ingest(engine, "small:", small,
+           [("title", [" ".join(f"w{w:02d}" for w in row) for row in titles])],
+           gpu)
+    tier = ("native" if engine.manager.get("small").text_engine._nt
+            is not None else "python")
+    log(f"text tier serving 'small': {tier}", gpu)
+    stats["text_tier"] = tier
     run_searches(torch, engine, bs, "small", "small:", qs, gt_small, "int8",
                  {k1_fused}, gpu, stats)
+    run_searches(torch, engine, bs, "small", "small:", qs_gt, gt_text, "int8",
+                 {k1_fused}, gpu, stats, flt=text_filter[0],
+                 allowed=text_filter[1])
     return stats
 
 
@@ -394,6 +644,7 @@ def main() -> int:
         from valkey_search_tpu_torch.ops import _build
         from valkey_search_tpu_torch.ops import bucket_scan as bs
         from valkey_search_tpu_torch.runtime import device
+        from valkey_search_tpu_torch.text.lexer import Lexer
     except ImportError as exc:
         raise SmokeFailure(
             f"run from the root of a checkout of the repository ({exc})")
@@ -406,12 +657,19 @@ def main() -> int:
         f"free {free / 2**30:.1f} GiB of {total / 2**30:.1f} GiB", gpu)
 
     t0 = time.perf_counter()
-    for name in ("bucket_scan_i8_packed", "bucket_scan_bf16"):
-        _build.load(name)
+    # the native text tier (g++) builds beside the kernels; without it the
+    # text index serves from its Python tier, which the slice reports
+    text_tier = threading.Thread(target=lambda: Lexer().tokenize("warm up"))
+    text_tier.start()
+    sources = ("bucket_scan_i8_packed", "bucket_scan_bf16")
+    with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source
+        list(pool.map(_build.load, sources))
+    for name in sources:
         secs, report = _build.BUILD_INFO[name]
         log(f"built {name} in {secs:.1f} s; ptxas: "
             + " | ".join(line.strip() for line in report.splitlines()
                          if "registers" in line or "spill" in line), gpu)
+    text_tier.join()
     log(f"build phase {time.perf_counter() - t0:.1f} s", gpu)
 
     t0 = time.perf_counter()
@@ -419,7 +677,7 @@ def main() -> int:
     log(f"kernel phase {time.perf_counter() - t0:.1f} s", gpu)
 
     t0 = time.perf_counter()
-    stats = slice_phase(torch, bs, gpu)
+    stats = slice_phase(torch, bs, dev, gpu)
     log(f"slice phase {time.perf_counter() - t0:.1f} s", gpu)
     log("slice stats " + json.dumps(stats), gpu)
 
@@ -433,15 +691,18 @@ def main() -> int:
         "bucket_scan_bf16":
             ("valkey_search_tpu_torch/csrc/bucket_scan_bf16.cu",
              "valkey_search_tpu/ops/pallas_scan.py:164"),
+        "bucket_scan_i8":
+            ("valkey_search_tpu_torch/csrc/bucket_scan_i8_packed.cu",
+             "valkey_search_tpu/ops/pallas_scan.py:589"),
     }
     kernels = []
     for name, (source, tpu) in replaces.items():
-        rec = records.get(name, {})
+        rec = records[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": tpu,
-            "launches": stats["launches"].get(name, 0),
-            "max_abs_err": rec.get("max_abs_err"), "ms": rec.get("ms"),
-            "plain_ms": rec.get("plain_ms"),
+            # the main path's count; K3 has no search path, so its 0 stands
+            # beside the kernel phase's check_launches
+            "launches": stats["launches"].get(name, 0), **rec,
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(gpu, flush=True)

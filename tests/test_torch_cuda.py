@@ -11,6 +11,8 @@ import numpy as np
 import pytest
 import torch
 
+from valkey_search_tpu.runtime import config
+from valkey_search_tpu_torch.indexes.flat import FlatVectorIndex
 from valkey_search_tpu_torch.ops import bucket_scan as bs
 from valkey_search_tpu_torch.ops import topk
 from valkey_search_tpu_torch.runtime.device import set_device
@@ -88,3 +90,59 @@ def test_fused_topk_on_card_matches_cpu(dev, int8):
         assert same >= 0.99
     torch.testing.assert_close(gd.cpu(), cd, rtol=1e-5, atol=1e-5)
     assert allowed[gi.cpu().long()].all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("groups,d", [(1, 128), (3, 768), (2, 48)])
+def test_k3_matches_plain(dev, groups, d):
+    gen = torch.Generator(device=dev).manual_seed(groups * 1000 + d)
+    b, n = 40, groups * GROUP
+    n_rows = n - 999
+    q = torch.randint(-127, 128, (b, d), generator=gen, device=dev,
+                      dtype=torch.int8)
+    c = torch.randint(-127, 128, (n_rows, d), generator=gen, device=dev,
+                      dtype=torch.int8)
+    clamp, sentinel, _, _ = bs.i8_layout(bs.round_up(d, 128))
+    bias = torch.randint(0, clamp // 64, (n,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    bias[torch.rand((n,), generator=gen, device=dev) < 0.05] = sentinel
+    bias[n_rows:] = sentinel
+    before = bs.launch_counts()["bucket_scan_i8"]
+    vals, idx = bs.bucket_min_scan_i8(q, c, bias)
+    torch.cuda.synchronize()
+    assert bs.launch_counts()["bucket_scan_i8"] == before + 1
+    pv, pi = bs.bucket_min_scan_i8_plain(q, c, bias)
+    assert torch.equal(vals.view(torch.int32), pv.view(torch.int32))
+    assert torch.equal(idx, pi)
+    assert bool((vals < 0).any())  # negative scores were exercised
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["int8", "bfloat16"])
+def test_filtered_search_batch_stays_inside_the_mask(dev, dtype):
+    """A 1% pre-filter through search_batch on the card (the fused scan at
+    131,072+ rows): every id lies inside the mask, as on the CPU."""
+    saved = config.get("search.corpus-dtype")
+    config.set_config("search.corpus-dtype", dtype)
+    try:
+        rng = np.random.default_rng(4)
+        n, d, k = 140_000, 32, 10
+        vecs = rng.standard_normal((n, d)).astype(np.float32)
+        allowed = rng.random(n) < 0.01
+        index = FlatVectorIndex(dim=d, device=dev)
+        for i in range(n):
+            index.add_record(f"k{i}", vecs[i])
+        q = rng.standard_normal((6, d)).astype(np.float32)
+        bs.reset_launches()
+        _, ids = index.search_batch(
+            q, k, filter_mask=torch.from_numpy(allowed).to(dev))
+        assert sum(bs.launch_counts().values()) == 1
+        assert (ids >= 0).all() and allowed[ids].all()
+        dist = ((vecs[None, :, :] - q[:, None, :]) ** 2).sum(-1)
+        dist[:, ~allowed] = np.inf
+        want = np.argsort(dist, axis=1)[:, :k]
+        hits = np.mean([len(set(ids[i]) & set(want[i])) / k
+                        for i in range(len(q))])
+        assert hits >= 0.98
+    finally:
+        config.set_config("search.corpus-dtype", saved)

@@ -166,11 +166,15 @@ def test_unported_surface_raises_typed_errors():
         teng.execute("HDEL", "k", "f")
     with pytest.raises(CommandError, match="acl"):
         teng.execute("FT._LIST", user="alice")
-    with pytest.raises(ValueError, match="TAG attributes are not ported"):
-        teng.execute("FT.CREATE", "t", "SCHEMA", "tag", "TAG")
-    with pytest.raises(ValueError, match="HNSW"):
+    for cmd in ("FT._DEBUG", "EXPIRE", "MULTI", "SAVE", "HGET"):
+        with pytest.raises(CommandError, match="not ported"):
+            teng.execute(cmd, "k")
+    with pytest.raises(ValueError, match="VECTOR HNSW attributes are not"):
         teng.execute("FT.CREATE", "h", "SCHEMA", "v", "VECTOR", "HNSW", "6",
                      "TYPE", "FLOAT32", "DIM", "4", "DISTANCE_METRIC", "L2")
+    # TAG, NUMERIC and TEXT are ported: the index is created
+    assert teng.execute("FT.CREATE", "t", "SCHEMA", "tag", "TAG", "n",
+                        "NUMERIC", "title", "TEXT") == "OK"
 
 
 _GUARD = r"""
@@ -188,12 +192,25 @@ set_device("cpu")
 from valkey_search_tpu_torch.server.engine import Engine
 e = Engine()
 e.execute("FT.CREATE", "i", "SCHEMA", "v", "VECTOR", "FLAT", "6", "TYPE",
-          "FLOAT32", "DIM", "4", "DISTANCE_METRIC", "L2")
+          "FLOAT32", "DIM", "4", "DISTANCE_METRIC", "L2", "t", "TAG",
+          "n", "NUMERIC", "title", "TEXT")
 for i in range(5):
-    e.execute("HSET", f"k{i}", "v", np.full(4, i, np.float32).tobytes())
+    e.execute("HSET", f"k{i}", "v", np.full(4, i, np.float32).tobytes(),
+              "t", "even" if i % 2 == 0 else "odd", "n", str(i),
+              "title", "running fox" if i < 3 else "sleeping dog")
+q = np.full(4, 3.2, np.float32).tobytes()
 reply = e.execute("FT.SEARCH", "i", "*=>[KNN 2 @v $q]", "PARAMS", "2", "q",
-                  np.full(4, 3.2, np.float32).tobytes(), "NOCONTENT")
+                  q, "NOCONTENT")
 assert reply == [2, "k3", "k4"], reply
+reply = e.execute("FT.SEARCH", "i", "(@t:{even} @n:[0 3])=>[KNN 2 @v $q]",
+                  "PARAMS", "2", "q", q, "NOCONTENT")
+assert reply == [2, "k2", "k0"], reply
+reply = e.execute("FT.SEARCH", "i", "@title:run=>[KNN 5 @v $q]", "PARAMS",
+                  "2", "q", q, "NOCONTENT")
+assert reply == [3, "k2", "k1", "k0"], reply
+reply = e.execute("FT.SEARCH", "i", "@n:[1 4]", "SORTBY", "n", "DESC",
+                  "NOCONTENT")
+assert reply == [4, "k4", "k3", "k2", "k1"], reply
 assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")]
 print("no-jax-ok")
 """

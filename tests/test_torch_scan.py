@@ -160,3 +160,75 @@ def test_cpu_wrapper_is_not_a_launch(rng):
     q, c, bias = _i8_case(rng, 2, ps.GROUP, 128, 1, ps.GROUP)
     bs.bucket_min_scan_i8_packed(_t(q), _t(c), _t(bias), 1)
     assert sum(bs.launch_counts().values()) == 0
+
+
+# -- K3: the int8 scan with (vals, idx) outputs -------------------------------
+
+
+@pytest.mark.parametrize("d", [128, 256, 512, 768])
+def test_i8_layout_matches(d):
+    assert bs.i8_layout(d) == ps.i8_layout(d)
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_make_bias_i8_bit_identical(rng, metric):
+    n, d_pad = 3000, 768
+    corpus_sq = (rng.random(n) * 4e6).astype(np.float32)
+    inv_two = np.float32(1.0) / (np.float32(2.0) * np.float32(0.731)
+                                 * np.float32(0.0123))
+    invalid, allowed = _masks(rng, n)
+    want = ps.make_bias_i8(
+        n, d_pad, metric, jnp.asarray(corpus_sq), jnp.asarray(inv_two),
+        jnp.asarray(invalid), jnp.asarray(allowed))
+    got = bs.make_bias_i8(
+        n, d_pad, metric, _t(corpus_sq), torch.tensor(inv_two),
+        _t(invalid), _t(allowed))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want)[0])
+
+
+def _k3_case(rng, b, n, d, n_rows):
+    q = rng.integers(-127, 128, (b, d)).astype(np.int8)
+    c = np.zeros((n, d), np.int8)
+    c[:n_rows] = rng.integers(-127, 128, (n_rows, d)).astype(np.int8)
+    clamp, sentinel, _, _ = ps.i8_layout(d)
+    # small biases make many scores negative (no +DOTMAX offset in K3)
+    bias = rng.integers(0, clamp // 64, n).astype(np.int32)
+    bias[rng.random(n) < 0.05] = sentinel  # invalid / filtered rows
+    bias[n_rows:] = sentinel               # padding
+    bias[: ps.GROUP : 128] = sentinel      # lane 0 of group 0: all excluded
+    return q, c, bias
+
+
+@pytest.mark.parametrize("groups,d", [(1, 128), (2, 128), (1, 768), (2, 768)])
+def test_k3_plain_bit_identical_to_pallas(rng, groups, d):
+    b, n = 16, groups * ps.GROUP
+    n_rows = n - 555
+    q, c, bias = _k3_case(rng, b, n, d, n_rows)
+    jq, jc, jb = jnp.asarray(q), jnp.asarray(c), jnp.asarray(bias)[None]
+    kv, ki = ps.bucket_min_scan_i8(jq, jc, jb, block_b=16, interpret=True)
+    rv, ri = ps.bucket_min_scan_i8_reference(jq, jc, jb)
+    # the port reads only the real rows; the bias carries the padding
+    gv, gi = bs.bucket_min_scan_i8(_t(q), _t(c[:n_rows]), _t(bias))
+    assert gv.shape == gi.shape == (b, n // 128)
+    assert gv.dtype == torch.float32 and gi.dtype == torch.int32
+    for vals, idx in ((kv, ki), (rv, ri)):
+        np.testing.assert_array_equal(gv.numpy().view(np.int32),
+                                      np.asarray(vals).view(np.int32))
+        np.testing.assert_array_equal(gi.numpy(), np.asarray(idx))
+    assert (gv.numpy() < 0).any()  # negative scores were exercised
+    _, _, _, invalid_thresh = bs.i8_layout(d)
+    assert (gv.numpy()[:, 0] > invalid_thresh).all()  # the all-SENTINEL lane
+
+
+def test_k3_wrapper_checks_and_counts(rng):
+    q = torch.zeros((4, 128), dtype=torch.int8)
+    c = torch.zeros((10, 128), dtype=torch.int8)
+    with pytest.raises(ValueError):  # bias not a multiple of GROUP
+        bs.bucket_min_scan_i8(q, c, torch.zeros(100, dtype=torch.int32))
+    with pytest.raises(ValueError):  # wrong bias dtype
+        bs.bucket_min_scan_i8(q, c, torch.zeros(ps.GROUP))
+    bs.reset_launches()
+    q, c, bias = _k3_case(rng, 2, ps.GROUP, 128, ps.GROUP)
+    bs.bucket_min_scan_i8(_t(q), _t(c), _t(bias))
+    assert bs.launch_counts()["bucket_scan_i8"] == 0  # CPU: plain version

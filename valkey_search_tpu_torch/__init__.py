@@ -10,7 +10,7 @@ hand-written CUDA kernels (``csrc/``) where the reference had Pallas.
 This package imports ``torch`` and never ``jax``. It reuses, by import, the
 reference modules that are JAX-free (``runtime.config``,
 ``runtime.metrics``, ``utils.{interning,cancel,lru,patricia}``,
-``query.batcher``, ``schema.attribute_data_type``), so the config registry,
-the metrics and the query batcher are shared with the reference when both
-run in one process.
+``query.{batcher,planner}``, ``schema.attribute_data_type`` and the native
+text tier ``native_lib``), so the config registry, the metrics and the query
+batcher are shared with the reference when both run in one process.
 """

@@ -28,6 +28,18 @@
 // keys (order-free, so still exact), which spreads even span 8's eight
 // groups per million rows over every SM. The tensor cores (s8 wgmma) and
 // TMA staging are later work and leave this output contract unchanged.
+//
+// K3, the second entry point (bucket_scan_i8), replaces the TPU kernel
+// valkey_search_tpu/ops/pallas_scan.py bucket_min_scan_i8 (body
+// _kernel_i8). It runs the same
+// scan at span 1 and chunk_bits 7, but its bias carries no +DOTMAX, so
+// scores range over [-DOTMAX, SENTINEL + DOTMAX]. The same template serves:
+// its min is a signed int32 min from INT32_MAX, `>> pre_shift` an arithmetic
+// shift (floor), and the shift into the key is done on uint32, which gives
+// the two's-complement bits of the TPU kernel without C++'s undefined shift
+// of a negative int. A decode pass then writes, per survivor column c of
+// group g and lane l, vals = ((best >> 7) << pre_shift) as f32 and
+// idx = g * 16384 + (best & 127) * 128 + l, as K2's does.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -100,8 +112,9 @@ scan_i8_packed(const int8_t* __restrict__ q, const int8_t* __restrict__ c,
     const int32_t bv = __ldg(bias + row);
 #pragma unroll
     for (int t = 0; t < kTileQ; ++t) {
-      int32_t score = bv - acc[t];  // >= 0: the bias carries +DOTMAX
-      if (kShift) score >>= pre_shift;
+      // K1: >= 0, its bias carries +DOTMAX; K3: may be negative
+      int32_t score = bv - acc[t];
+      if (kShift) score >>= pre_shift;  // arithmetic: floor
       const int32_t key =
           (int32_t)(((uint32_t)score << chunk_bits) | (uint32_t)m);
       best[t] = min(best[t], key);
@@ -141,6 +154,20 @@ cudaError_t launch(const int8_t* q, const int8_t* c, const int32_t* bias,
   return cudaGetLastError();
 }
 
+// K3: packed keys (held in idx) -> vals and absolute rows, in place
+__global__ void decode_i8(float* __restrict__ vals, int32_t* __restrict__ idx,
+                          long long total, long long n_out, int pre_shift) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       i < total; i += (long long)gridDim.x * blockDim.x) {
+    const int32_t best = idx[i];
+    const int32_t score = (int32_t)((uint32_t)(best >> 7) << pre_shift);
+    const long long col = i % n_out;
+    vals[i] = (float)score;  // round to nearest, as XLA's int32 -> f32
+    idx[i] = (int32_t)((col / kBucket) * (kChunksPerUnit * kBucket) +
+                       (best & 127) * kBucket + col % kBucket);
+  }
+}
+
 }  // namespace
 
 // q [b, d] int8, c [n_rows, d] int8 (row-major, 16-byte aligned, d % 16 == 0),
@@ -172,4 +199,32 @@ extern "C" int bucket_scan_i8_packed(const void* q, const void* c,
 
 extern "C" const char* bucket_scan_i8_packed_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// K3: q [b, d] int8, c [n_rows, d] int8 (as above), bias [n] int32 without
+// the +DOTMAX offset (SENTINEL = excluded) with n % 16384 == 0 and
+// n_rows <= n; vals [b, n / 128] f32 and idx [b, n / 128] int32 are written
+// in full. Launches on `stream` and returns the CUDA error code.
+extern "C" int bucket_scan_i8(const void* q, const void* c, const void* bias,
+                              void* vals, void* idx, int b, int d,
+                              long long n_rows, long long n, int pre_shift,
+                              void* stream) {
+  if (b <= 0 || n <= 0) return 0;
+  if (d <= 0 || d % 16 || n_rows < 0 || n_rows > n ||
+      n % ((long long)kChunksPerUnit * kBucket)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  auto s = static_cast<cudaStream_t>(stream);
+  auto qp = static_cast<const int8_t*>(q);
+  auto cp = static_cast<const int8_t*>(c);
+  auto bp = static_cast<const int32_t*>(bias);
+  auto ip = static_cast<int32_t*>(idx);
+  cudaError_t e = pre_shift == 0
+      ? launch<false>(qp, cp, bp, ip, b, d, n_rows, n, 1, 0, 7, s)
+      : launch<true>(qp, cp, bp, ip, b, d, n_rows, n, 1, pre_shift, 7, s);
+  if (e != cudaSuccess) return (int)e;
+  const long long n_out = n / kBucket;
+  decode_i8<<<1024, 256, 0, s>>>(static_cast<float*>(vals), ip,
+                                 (long long)b * n_out, n_out, pre_shift);
+  return (int)cudaGetLastError();
 }

@@ -1,8 +1,10 @@
-"""Index structures of the port: the FLAT vector index on a torch mirror.
+"""Index structures of the port: FLAT vectors, tags and numbers on torch.
 
-Counterpart of valkey_search_tpu/indexes/. HNSW, tag, numeric and text
-indexes are not ported yet.
+Counterpart of valkey_search_tpu/indexes/ (text indexes live in
+``valkey_search_tpu_torch.text``). HNSW is not ported yet.
 """
 
 from valkey_search_tpu_torch.indexes.base import IndexBase, RecordResult  # noqa: F401
 from valkey_search_tpu_torch.indexes.flat import FlatVectorIndex  # noqa: F401
+from valkey_search_tpu_torch.indexes.numeric import NumericIndex  # noqa: F401
+from valkey_search_tpu_torch.indexes.tag import TagIndex  # noqa: F401

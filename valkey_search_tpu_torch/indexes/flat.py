@@ -65,9 +65,14 @@ class FlatVectorIndex(VectorIndexBase):
     ) -> Tuple[np.ndarray, np.ndarray]:
         """k-NN for a query batch [B, d] -> (dists [B, k], doc ids [B, k]).
 
-        ``filter_mask``: optional bool tensor [cap] (or [B, cap]) of allowed
-        docs on the store's device."""
-        queries = np.ascontiguousarray(np.atleast_2d(queries), np.float32)
+        ``filter_mask``: optional bool tensor [n] (or [B, n]) of allowed
+        docs on the store's device. Predicate masks span the schema's whole
+        doc-id space, which can outgrow the store (docs without this
+        vector field); the mask is cut or padded with False to the store's
+        capacity, since rows past it hold no vector and are never answers.
+        (The JAX package passes such a mask on and fails to broadcast.)"""
+        # a copy: query blobs arrive as read-only buffers
+        queries = np.array(np.atleast_2d(queries), np.float32, order="C")
         if queries.shape[1] != self.dim:
             raise ValueError(
                 f"query dim {queries.shape[1]} != index dim {self.dim}")
@@ -78,6 +83,8 @@ class FlatVectorIndex(VectorIndexBase):
         mode = str(config.get("search.topk-mode"))
         q = torch.from_numpy(queries).to(self.store.device)
         corpus = snap["vectors"]
+        if filter_mask is not None:
+            filter_mask = _fit_mask(filter_mask, corpus.shape[0])
         common = dict(k=k, metric=self.metric, corpus_sq=snap["norms_sq"],
                       invalid=snap["invalid"], filter_mask=filter_mask)
         if (
@@ -110,3 +117,13 @@ class FlatVectorIndex(VectorIndexBase):
             )
         STATS.incr("flat_searches", queries.shape[0])
         return d.cpu().numpy(), i.cpu().numpy()
+
+
+def _fit_mask(mask: torch.Tensor, cap: int) -> torch.Tensor:
+    """``mask`` [..., n] cut or False-padded to [..., cap]."""
+    n = mask.shape[-1]
+    if n > cap:
+        return mask[..., :cap]
+    if n < cap:
+        return torch.nn.functional.pad(mask, (0, cap - n), value=False)
+    return mask

@@ -6,7 +6,8 @@ headers, so a build takes seconds. Builds happen at first use, from the
 repository's sources only, into ``runtime.device.KERNEL_BUILD_DIR``; the
 library name carries a hash of the source and flags, so an edited source
 rebuilds and an unchanged one is reused. A failed build raises with
-nvcc's stderr.
+nvcc's stderr. Each source has its own lock, so different sources build
+at once (one nvcc each) and one source builds once.
 """
 
 from __future__ import annotations
@@ -31,7 +32,8 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_lock = threading.Lock()
+_locks = {name[:-3]: threading.Lock() for name in os.listdir(CSRC_DIR)
+          if name.endswith(".cu")}
 _libs: Dict[str, ctypes.CDLL] = {}
 # name -> (seconds spent building, 0.0 when reused; ptxas report)
 BUILD_INFO: Dict[str, Tuple[float, str]] = {}
@@ -54,7 +56,7 @@ def _nvcc() -> str:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library built from ``csrc/<name>.cu`` (built if needed)."""
-    with _lock:
+    with _locks[name]:
         lib = _libs.get(name)
         if lib is not None:
             return lib

@@ -1,4 +1,4 @@
-"""Fused coarse scans K1 (packed int8) and K2 (bf16): layout, plain versions, wrappers.
+"""Fused coarse scans K1 (packed int8), K2 (bf16), K3 (int8): layout, plain versions, wrappers.
 
 Counterpart of valkey_search_tpu/ops/pallas_scan.py. A coarse scan scores
 every query against every corpus row and keeps, for each strided bucket of
@@ -12,14 +12,20 @@ bit (int8) or to the bf16 kernel's stated tolerance.
 
 Each kernel has three parts in this module:
 
-- the host half, unchanged in meaning: ``i8_packed_layout``, the biases
-  (``make_bias_i8_packed``, ``make_bias``) and ``chunk_of_rows``;
+- the host half, unchanged in meaning: ``i8_packed_layout``, ``i8_layout``,
+  the biases (``make_bias_i8_packed``, ``make_bias``, ``make_bias_i8``) and
+  ``chunk_of_rows``;
 - the plain PyTorch version (``*_plain``), which computes exactly what the
   kernel outputs;
-- the wrapper (``bucket_min_scan_i8_packed``, ``bucket_min_scan``), which
+- the wrapper (``bucket_min_scan_i8_packed``, ``bucket_min_scan``,
+  ``bucket_min_scan_i8``), which
   checks its arguments and, for a CUDA tensor, launches the hand-written
   kernel from ``csrc/`` (built by ``ops/_build.py``) or raises. Only a CPU
   tensor takes the plain version.
+
+K3 (``bucket_min_scan_i8``) has no caller in either package's search path:
+the JAX package calls its TPU counterpart only from its tests. It is ported
+at the kernel level so that every TPU kernel has a counterpart.
 
 Rows at or past ``corpus.shape[0]`` (up to ``bias.shape[0]``) score as zero
 vectors, exactly like the JAX package's zero-padded corpus, so callers pad
@@ -49,6 +55,7 @@ LAUNCHES: Dict[str, int] = {
     "bucket_scan_i8_packed[pre_shift=0]": 0,
     "bucket_scan_i8_packed[pre_shift>0]": 0,
     "bucket_scan_bf16": 0,
+    "bucket_scan_i8": 0,
 }
 
 
@@ -326,6 +333,115 @@ def bucket_min_scan(
 
 
 # ---------------------------------------------------------------------------
+# K3: int8 scan with (vals, idx) outputs
+# ---------------------------------------------------------------------------
+
+
+def i8_layout(d: int) -> Tuple[int, int, int, int]:
+    """(bias_clamp, sentinel, pre_shift, invalid_thresh) of K3 at padded dim
+    ``d``. Scores are bias - dot with no offset, so they may be negative;
+    the 4096 slack keeps valid and invalid scores apart after the pre-shift
+    (which can lower a score by up to 2^pre_shift - 1)."""
+    dotmax = d * 127 * 127
+    bias_clamp = 1 << 22
+    sentinel = bias_clamp + 2 * dotmax + 4096
+    pre_shift = 0
+    while (sentinel + dotmax) >> pre_shift >= (1 << 24):
+        pre_shift += 1
+    invalid_thresh = bias_clamp + dotmax + 2048
+    return bias_clamp, sentinel, pre_shift, invalid_thresh
+
+
+def make_bias_i8(
+    n: int,
+    d_pad: int,
+    metric: str,
+    corpus_sq: Optional[torch.Tensor],
+    inv_two_scales: torch.Tensor,
+    invalid: Optional[torch.Tensor],
+    filter_mask: Optional[torch.Tensor],
+) -> torch.Tensor:
+    """int32 [n] bias of K3: round(||c||^2 / (2 s_q s_c)) clipped to
+    BIAS_CLAMP for l2, 0 for ip/cosine; SENTINEL for rows that must never be
+    returned. f32 steps in the JAX package's order, half to even."""
+    bias_clamp, sentinel, _, _ = i8_layout(d_pad)
+    if metric == "l2":
+        if corpus_sq is None:
+            raise ValueError("l2 int8 bias needs corpus_sq")
+        f = corpus_sq.to(torch.float32) * inv_two_scales
+        bias = torch.clamp(torch.round(f), 0, bias_clamp).to(torch.int32)
+    else:
+        bias = torch.zeros((n,), dtype=torch.int32,
+                           device=inv_two_scales.device)
+    fill = torch.tensor(sentinel, dtype=torch.int32, device=bias.device)
+    if invalid is not None:
+        bias = torch.where(invalid, fill, bias)
+    if filter_mask is not None:
+        bias = torch.where(filter_mask, bias, fill)
+    return bias
+
+
+def bucket_min_scan_i8_plain(
+    queries: torch.Tensor, corpus: torch.Tensor, bias: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K3: (vals [B, n/128] f32, idx [B, n/128] int32).
+
+    s = ((bias - dot) >> pre_shift) << pre_shift with the dot in exact
+    integers (an f32 matmul while d_pad * 127^2 < 2^24, f64 past that; TF32
+    refused), then the min over each strided bucket and its first argmin
+    (the lowest chunk on ties), as the JAX oracle
+    ``bucket_min_scan_i8_reference`` computes."""
+    b, d = queries.shape
+    n = bias.shape[0]
+    d_pad = round_up(d, 128)
+    _, _, pre_shift, _ = i8_layout(d_pad)
+    if queries.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("exact int8 dots need TF32 off (runtime.device)")
+    ftype = torch.float32 if d_pad * 127 * 127 < (1 << 24) else torch.float64
+    dots = (queries.to(ftype) @ corpus.to(ftype).T).to(torch.int32)
+    dots = _pad_cols(dots, n)
+    s = ((bias[None, :] - dots) >> pre_shift) << pre_shift
+    sb = s.reshape(b, n // GROUP, GROUP // BUCKET, BUCKET)
+    vals, amin = sb.min(dim=2)
+    g = torch.arange(n // GROUP, dtype=torch.int32, device=s.device)
+    lane = torch.arange(BUCKET, dtype=torch.int32, device=s.device)
+    idx = g[None, :, None] * GROUP + amin.to(torch.int32) * BUCKET + lane
+    return (vals.to(torch.float32).reshape(b, n // BUCKET),
+            idx.reshape(b, n // BUCKET))
+
+
+def bucket_min_scan_i8(
+    queries: torch.Tensor, corpus: torch.Tensor, bias: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3: queries [B, d] int8, corpus [n_rows, d] int8, bias [n] int32
+    (no offset; SENTINEL = excluded; n % GROUP == 0, n_rows <= n) →
+    (vals [B, n/128] f32 integer-domain scores, de-pre-shifted; idx
+    [B, n/128] int32 absolute rows). The layout constants come from d
+    padded to 128, as in the JAX package."""
+    _check_scan_args(queries, corpus, bias, torch.int8, torch.int32, GROUP,
+                     align=16)
+    if queries.device.type == "cpu":
+        return bucket_min_scan_i8_plain(queries, corpus, bias)
+    b, d = queries.shape
+    n = bias.shape[0]
+    _, _, pre_shift, _ = i8_layout(round_up(d, 128))
+    vals = torch.empty((b, n // BUCKET), dtype=torch.float32,
+                       device=queries.device)
+    idx = torch.empty((b, n // BUCKET), dtype=torch.int32,
+                      device=queries.device)
+    lib = _library("bucket_scan_i8_packed", "bucket_scan_i8")
+    with torch.cuda.device(queries.device):
+        rc = lib.bucket_scan_i8(
+            queries.data_ptr(), corpus.data_ptr(), bias.data_ptr(),
+            vals.data_ptr(), idx.data_ptr(), b, d, corpus.shape[0], n,
+            pre_shift, torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_on(lib, rc, "bucket_scan_i8_packed", "bucket_scan_i8")
+    _count_launch("bucket_scan_i8")
+    return vals, idx
+
+
+# ---------------------------------------------------------------------------
 # argument checks and binding
 # ---------------------------------------------------------------------------
 
@@ -365,7 +481,7 @@ def _check_scan_args(queries, corpus, bias, in_dtype, bias_dtype, quantum,
 
 
 _bind_lock = threading.Lock()
-_bound: Dict[str, ctypes.CDLL] = {}
+_bound: Dict[Tuple[str, str], ctypes.CDLL] = {}
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
@@ -377,28 +493,36 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, _P,
     ],
+    "bucket_scan_i8": [
+        _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+        ctypes.c_longlong, ctypes.c_int, _P,
+    ],
 }
 
 
-def _library(name: str) -> ctypes.CDLL:
-    """The built kernel library with its C signatures declared."""
+def _library(source: str, fn_name: Optional[str] = None) -> ctypes.CDLL:
+    """The library built from ``csrc/<source>.cu`` with the C signature of
+    its entry point ``fn_name`` (default: the source's name) declared."""
+    fn_name = fn_name or source
     with _bind_lock:
-        lib = _bound.get(name)
+        lib = _bound.get((source, fn_name))
         if lib is None:
             from valkey_search_tpu_torch.ops import _build
 
-            lib = _build.load(name)
-            fn = getattr(lib, name)
-            fn.argtypes = _SIGNATURES[name]
+            lib = _build.load(source)
+            fn = getattr(lib, fn_name)
+            fn.argtypes = _SIGNATURES[fn_name]
             fn.restype = ctypes.c_int
-            err = getattr(lib, f"{name}_error_string")
+            err = getattr(lib, f"{source}_error_string")
             err.argtypes = [ctypes.c_int]
             err.restype = ctypes.c_char_p
-            _bound[name] = lib
+            _bound[(source, fn_name)] = lib
         return lib
 
 
-def _raise_on(lib: ctypes.CDLL, rc: int, name: str) -> None:
+def _raise_on(lib: ctypes.CDLL, rc: int, source: str,
+              fn_name: Optional[str] = None) -> None:
     if rc:
-        msg = getattr(lib, f"{name}_error_string")(rc).decode()
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc} ({msg})")
+        msg = getattr(lib, f"{source}_error_string")(rc).decode()
+        raise RuntimeError(
+            f"{fn_name or source} launch failed: CUDA error {rc} ({msg})")

@@ -7,10 +7,9 @@ src/query/predicate.h:41-377). A predicate evaluates three ways:
 device; And/Or/Negate are elementwise &, |, ~) and ``matches`` (host-side
 single-doc check during content resolution).
 
-The parser builds every node kind. The port's schemas hold only vector
-attributes so far, so tag, numeric and text nodes fail at evaluation with
-the JAX package's errors (no such attribute); MatchAll and the boolean
-nodes over it work.
+Tag, numeric and text nodes evaluate against the port's indexes
+(``indexes/tag.py``, ``indexes/numeric.py``, ``text/text_index.py``); a
+node naming an attribute of another kind raises the JAX package's errors.
 """
 
 from __future__ import annotations

@@ -3,9 +3,10 @@
 Counterpart of valkey_search_tpu/query/search.py (reference
 src/query/search.{h,cc}) for FLAT vector attributes. An unfiltered KNN goes
 through the JAX-free query batcher of the JAX package, so concurrent
-searches coalesce into one ``search_batch`` launch; a filtered KNN scans
-with the predicate's device mask (a FLAT index always pre-filters,
-planner.cc:26-28); a query without KNN resolves its predicate on the host.
+searches coalesce into one ``search_batch`` launch; a filtered KNN is one
+``search_batch`` launch of its own over the predicate's device mask (TAG,
+NUMERIC and TEXT leaves under And/Or/Negate), which the coarse scans fold
+into their bias; a query without KNN resolves its predicate on the host.
 HNSW attributes are not ported yet.
 """
 
@@ -17,7 +18,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from valkey_search_tpu.query import batcher
+from valkey_search_tpu.query import batcher, planner
 from valkey_search_tpu.runtime import config
 from valkey_search_tpu.runtime.metrics import STATS
 from valkey_search_tpu.utils import cancel
@@ -117,9 +118,14 @@ def _search_vector(schema, ctx, pred, knn) -> SearchResponse:
         d, docs = d_row[None], doc_row[None]
         STATS.incr("vector_searches_unfiltered")
     else:
+        qualified = pred.estimate(ctx)
         mask = pred.device_mask(ctx)
+        # a FLAT index always pre-filters (planner.cc:26-28): its scan scores
+        # every row anyway, with the mask folded into the bias
         d, docs = index.search_batch(qvec[None], knn.k, filter_mask=mask)
-        STATS.incr("vector_searches_prefiltered")
+        STATS.incr("vector_searches_prefiltered"
+                   if planner.use_prefiltering(qualified, index)
+                   else "vector_searches_inline_filtered")
 
     neighbors = []
     for dist, doc in zip(d[0], docs[0]):

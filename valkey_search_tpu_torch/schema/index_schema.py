@@ -6,16 +6,18 @@ predicate masks and vector rows align on one doc-id space; masks are bool
 tensors on the schema's device. ``upsert``/``delete`` are the synchronous
 write path.
 
-Only ``VECTOR FLAT`` attributes are ported so far: adding an HNSW, TAG,
-NUMERIC or TEXT attribute raises ``SchemaError``.
+TAG, NUMERIC, TEXT and ``VECTOR FLAT`` attributes are ported; adding an
+HNSW attribute raises ``SchemaError``. ``schema_from_reference`` builds a
+schema over the JAX package's exported host state under the same doc ids.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import threading
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Mapping, Optional, Sequence
 
+import numpy as np
 import torch
 
 from valkey_search_tpu.runtime import config
@@ -24,7 +26,11 @@ from valkey_search_tpu.schema.attribute_data_type import data_type_for
 from valkey_search_tpu.utils.interning import KeyInterner
 from valkey_search_tpu_torch.indexes.base import IndexBase, RecordResult
 from valkey_search_tpu_torch.indexes.flat import FlatVectorIndex
+from valkey_search_tpu_torch.indexes.numeric import NumericIndex
+from valkey_search_tpu_torch.indexes.tag import TagIndex
+from valkey_search_tpu_torch.indexes.vector_base import store_from_reference
 from valkey_search_tpu_torch.runtime.device import get_device
+from valkey_search_tpu_torch.text.text_index import TextEngine, TextFieldIndex
 
 
 class SchemaError(ValueError):
@@ -77,21 +83,32 @@ class IndexSchema:
         self.indexing_failures = 0
         self.backfill_in_progress = False
         self._valid_mask_cache = None
+        self.text_engine: Optional[TextEngine] = None  # with the first TEXT
+        self.text_options: Optional[dict] = None  # FT.CREATE's text options
 
     # -- definition ----------------------------------------------------------
     def add_tag_attribute(self, alias: str, identifier: Optional[str] = None,
                           separator: str = ",",
                           case_sensitive: bool = False) -> Attribute:
-        raise _not_ported("TAG", "indexes/tag.py")
+        idx = TagIndex(interner=self.interner, separator=separator,
+                       case_sensitive=case_sensitive, device=self.device)
+        return self._add(alias, identifier, idx)
 
     def add_numeric_attribute(self, alias: str,
                               identifier: Optional[str] = None) -> Attribute:
-        raise _not_ported("NUMERIC", "indexes/numeric.py")
+        return self._add(alias, identifier,
+                         NumericIndex(interner=self.interner,
+                                      device=self.device))
 
     def add_text_attribute(self, alias: str, identifier: Optional[str] = None,
                            no_stem: bool = False, with_suffix_trie: bool = True,
                            weight: float = 1.0) -> Attribute:
-        raise _not_ported("TEXT", "text/text_index.py")
+        if self.text_engine is None:
+            self.text_engine = TextEngine(self, options=self.text_options)
+        idx = TextFieldIndex(engine=self.text_engine, alias=alias,
+                             no_stem=no_stem,
+                             with_suffix_trie=with_suffix_trie, weight=weight)
+        return self._add(alias, identifier, idx)
 
     def add_vector_attribute(
         self,
@@ -230,3 +247,65 @@ class IndexSchema:
                     for alias, a in self.attributes.items()
                 },
             }
+
+
+def schema_from_reference(state: Mapping[str, object],
+                          device: Optional[torch.device] = None
+                          ) -> IndexSchema:
+    """A schema over the JAX package's exported host state, under its doc ids.
+
+    ``state`` holds plain values: ``name``, ``prefixes``, ``on``,
+    ``text_options``, ``keys_by_doc`` (the interner's key -> doc map),
+    ``interner_capacity``, ``documents`` (key -> raw fields) and
+    ``attributes``, a list of dicts with ``alias``, ``identifier``, ``kind``
+    and the kind's options (TAG: ``separator``, ``case_sensitive``; TEXT:
+    ``no_stem``, ``with_suffix_trie``, ``weight``; FLAT: the ``arrays`` that
+    ``FlatVectorIndex.from_reference`` takes). Vector rows are copied
+    verbatim; tag, numeric and text values are replayed from each key's
+    fields under the key's own doc id, so masks and KNN ids compare bit for
+    bit with the JAX package's."""
+    schema = IndexSchema(str(state["name"]), prefixes=state["prefixes"],
+                         on=str(state["on"]), device=device)
+    schema.text_options = state.get("text_options")
+    flat = []
+    for a in state["attributes"]:
+        alias, ident, kind = a["alias"], a["identifier"], a["kind"]
+        if kind == "TAG":
+            schema.add_tag_attribute(alias, ident, separator=a["separator"],
+                                     case_sensitive=a["case_sensitive"])
+        elif kind == "NUMERIC":
+            schema.add_numeric_attribute(alias, ident)
+        elif kind == "TEXT":
+            schema.add_text_attribute(
+                alias, ident, no_stem=a["no_stem"],
+                with_suffix_trie=a["with_suffix_trie"], weight=a["weight"])
+        elif kind == "FLAT":
+            arr = a["arrays"]
+            attr = schema.add_vector_attribute(
+                alias, ident, algorithm="FLAT",
+                dim=np.asarray(arr["vectors"]).shape[1],
+                metric=str(arr["metric"]))
+            attr.index.store = store_from_reference(
+                np.asarray(arr["vectors"]), arr["norms_sq"],
+                arr["magnitudes"], arr["present"], metric=str(arr["metric"]),
+                block=int(arr["block"]), device=schema.device)
+            flat.append(attr.index)
+        else:
+            raise _not_ported(kind, "indexes/")
+    mapping = dict(state["keys_by_doc"])
+    schema.interner.restore(mapping, capacity=int(state["interner_capacity"]))
+    for index in flat:
+        present = index.store.present
+        index._tracked = {k: d for k, d in mapping.items()
+                          if d < len(present) and present[d]}
+    for key, fields in state["documents"].items():
+        schema._documents[key] = dict(fields)
+        if key not in mapping:
+            continue  # dropped as invalid, or indexes nothing
+        for attr in schema.attributes.values():
+            if attr.kind == "FLAT":
+                continue
+            val = schema.data_type.fetch(fields, attr.identifier)
+            if val is not None:
+                attr.index.add_record(key, val)
+    return schema

@@ -8,6 +8,9 @@ vectors:
     FT.CREATE, FT.SEARCH, FT.INFO, FT._LIST, FT.DROPINDEX,
     HSET, HGETALL, DEL.
 
+An HSET indexes every field a subscribed schema declares (VECTOR FLAT, TAG,
+NUMERIC, TEXT); a DEL removes the key from every index.
+
 Commands whose modules are not ported yet raise ``CommandError`` naming the
 module of the JAX package that serves them; ACL users other than "default",
 asynchronous ingestion, key expiry, persistence and the cron are not ported
@@ -141,8 +144,8 @@ class Engine:
              "user_indexed_memory", a["memory"]]
             for alias, a in st["attributes"].items()
         ]
-        topts = getattr(schema, "text_options", None) or {}
-        return [
+        topts = schema.text_options or {}
+        out = [
             "index_name", st["name"],
             "index_options", [],
             "index_definition",
@@ -153,7 +156,13 @@ class Engine:
             "num_docs", st["num_docs"],
             "num_records", sum(a["tracked"]
                                for a in st["attributes"].values()),
-            "total_term_occurrences", 0, "num_terms", 0,
+        ]
+        eng = schema.text_engine
+        if eng is None:
+            # the text counters come first, 0 without a text index
+            # (index_schema.cc:1230-1237)
+            out += ["total_term_occurrences", 0, "num_terms", 0]
+        out += [
             "hash_indexing_failures", schema.indexing_failures,
             "backfill_in_progress", int(st["backfill_in_progress"]),
             "backfill_complete_percent",
@@ -162,6 +171,18 @@ class Engine:
             "recent_mutations_queue_delay", "0 sec",
             "state", "ready",
         ]
+        if eng is not None:  # text sections (index_schema.cc:1194-1280)
+            out += [
+                "num_terms", eng.stats()["distinct_words"],
+                "total_term_occurrences", sum(
+                    p.position_count() for _, p in eng.dictionary.items()),
+                "punctuation", eng.options.punctuation,
+                "stop_words", list(eng.options.stop_words),
+                "with_offsets", int(eng.options.with_offsets),
+                "min_stem_size", eng.lexer.min_stem_size,
+                "language", "english",
+            ]
+        return out
 
     def config_set(self, name: Value, value: Value) -> str:
         config.set_config(_s(name), value)
