@@ -14,7 +14,9 @@ Phases (each failure exits non-zero; there is no CPU path):
 3. kernels  - each kernel against its plain PyTorch version at
               N = 1,048,576: B = 256 with 5% of the rows excluded, and K1
               (both bodies) and K2 also at B = 1 with 99% excluded, as a
-              hybrid request under a 1% filter gives them; K1 keys and K3
+              hybrid request under a 1% filter gives them; K2 also at
+              B = 1, 7, 64 and 1,024 (l2), B = 1 (ip) and d 768 at B = 64
+              (K2_CASES), each with its query tile BQ; K1 keys and K3
               vals/idx bit-identical, K2 idx agreeing on >= 99% of columns
               and vals within rtol 4e-5, atol 1e-2;
 4. slice    - FT.CREATE (v VECTOR FLAT, cat TAG, price NUMERIC) + 1,000,000
@@ -60,6 +62,11 @@ RECALL_FLOOR = 0.99
 THREADS = 16
 KERNEL_B = 256
 KERNEL_N = 1_048_576
+# K2's kernel-phase cases: (B, positive, d, kept share of the rows)
+K2_CASES = ((1, True, 128, 0.95), (7, True, 128, 0.95), (64, True, 128, 0.95),
+            (256, True, 128, 0.95), (1024, True, 128, 0.95),
+            (1, False, 128, 0.95), (256, False, 128, 0.95),
+            (64, True, 768, 0.95), (1, True, 128, 0.01))
 QPS_BATCHES = (1024, 16384)
 
 
@@ -219,9 +226,11 @@ def kernel_phase(torch, bs, dev, gpu: str) -> dict:
             records[name] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms}
         del q, c, bias, got, want
 
-    d = 128
-    for b, positive, kept in ((KERNEL_B, True, 0.95), (KERNEL_B, False, 0.95),
-                              (1, True, 0.01)):
+    # K2 at the query tiles the wrapper picks for B = 1 .. 1,024 (l2), ip,
+    # d 768 (BQ capped by shared memory), and B = 1 with 99% excluded: the
+    # hybrid request, whose times are recorded as ms_b1 / plain_ms_b1
+    k2_err, by_b, hybrid = 0.0, {}, None
+    for b, positive, d, kept in K2_CASES:
         qf = torch.randn((b, d), generator=gen, device=dev)
         cf = torch.randn((n_rows, d), generator=gen, device=dev)
         alpha = -2.0 if positive else -1.0
@@ -233,6 +242,7 @@ def kernel_phase(torch, bs, dev, gpu: str) -> dict:
         bias[:n_rows] = (cf * cf).sum(1) if positive else 0.0
         bias = torch.where(excluded_rows(kept),
                            torch.full_like(bias, float("inf")), bias)
+        del qf, cf
         vals, idx = bs.bucket_min_scan(q, qsq, c, bias, positive)
         torch.cuda.synchronize()
         pv, pi = bs.bucket_min_scan_plain(q, qsq, c, bias, positive)
@@ -245,20 +255,33 @@ def kernel_phase(torch, bs, dev, gpu: str) -> dict:
                                   torch.isinf(pv[agree])))
         tol_ok = bool(torch.all(
             (vals - pv).abs()[finite] <= 1e-2 + 4e-5 * pv.abs()[finite]))
+        del vals, idx, pv, pi, agree, finite
+        torch.cuda.empty_cache()
         ms = time_ms(torch, lambda: bs.bucket_min_scan(q, qsq, c, bias,
                                                        positive))
         plain_ms = time_ms(
             torch, lambda: bs.bucket_min_scan_plain(q, qsq, c, bias, positive),
             reps=2)
-        log(f"K2 positive={positive} B={b} N={n} kept={kept}: idx agree "
-            f"{frac:.6f}, max |dval| {err:.6g} where idx agree, kernel "
-            f"{ms:.3f} ms, plain {plain_ms:.3f} ms", gpu)
-        check(frac >= 0.99, f"K2 B={b} idx agreement {frac} < 0.99")
-        check(tol_ok and inf_ok, f"K2 B={b} vals outside rtol 4e-5, atol 1e-2")
-        if positive and b == KERNEL_B:  # l2, the main path's case
-            records["bucket_scan_bf16"] = {
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
-        del qf, cf, q, c, bias, vals, idx, pv, pi
+        log(f"K2 positive={positive} B={b} d={d} BQ={bs.k2_query_tile(b, d)} "
+            f"N={n} kept={kept}: idx agree {frac:.6f}, max |dval| {err:.6g} "
+            f"where idx agree, kernel {ms:.3f} ms, plain {plain_ms:.3f} ms",
+            gpu)
+        check(frac >= 0.99, f"K2 B={b} d={d} idx agreement {frac} < 0.99")
+        check(tol_ok and inf_ok,
+              f"K2 B={b} d={d} vals outside rtol 4e-5, atol 1e-2")
+        k2_err = max(k2_err, err)
+        if kept < 0.5:  # the hybrid request
+            hybrid = (ms, plain_ms)
+        elif d == 128 and positive:  # l2 at the main path's dim
+            by_b[b] = (ms, plain_ms)
+        del q, c, bias
+        torch.cuda.empty_cache()
+    records["bucket_scan_bf16"] = {
+        "max_abs_err": k2_err, "ms": by_b[KERNEL_B][0],
+        "plain_ms": by_b[KERNEL_B][1], "ms_b1": hybrid[0],
+        "plain_ms_b1": hybrid[1]}
+    log("K2 (kernel ms, plain ms) by B, l2, d 128, 5% excluded: "
+        + json.dumps(by_b), gpu)
 
     # K3 has no search path: its launches here are counted apart from the
     # main path's

@@ -48,17 +48,50 @@ def test_kernels_match_plain(dev, span, d):
     assert sum(bs.launch_counts().values()) == before + 1
     assert torch.equal(got, bs.bucket_min_scan_i8_packed_plain(q, c, bias, span))
 
+
+# K2: ragged query tiles (B = 5, 40, 130 against BQ = 8, 40, 128), a k-pad
+# (d 48: a partial 64-column box and a 16-column k-step of zeros; d 136: a
+# second box of 8 columns), a padded tail of zero rows, and B = 1 with 95%
+# or more of the rows excluded, as a hybrid request gives them
+_K2_CASES = [(b, d, positive, 0.95)
+             for b in (1, 5, 40, 130) for d in (48, 128, 136)
+             for positive in (True, False)]
+_K2_CASES += [(1, 128, True, 0.01), (1, 128, False, 0.05), (1, 48, True, 0.01)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,d,positive,kept", _K2_CASES)
+def test_k2_kernel_matches_plain(dev, b, d, positive, kept):
+    gen = torch.Generator(device=dev).manual_seed(b * 1000 + d)
+    n = 4 * GROUP
+    n_rows = n - 999
     qf = torch.randn((b, d), generator=gen, device=dev)
     cf = torch.randn((n_rows, d), generator=gen, device=dev)
-    bias = torch.full((n,), float("inf"), device=dev)
-    bias[:n_rows] = (cf * cf).sum(1)
-    args = ((-2.0 * qf).to(torch.bfloat16), (qf * qf).sum(1),
-            cf.to(torch.bfloat16), bias, True)
+    bias = torch.zeros((n,), device=dev)
+    if positive:
+        bias[:n_rows] = (cf * cf).sum(1)
+    excluded = torch.rand((n,), generator=gen, device=dev) >= kept
+    excluded[n_rows:] = True
+    bias[excluded] = float("inf")
+    qsq = (qf * qf).sum(1) if positive else torch.zeros(b, device=dev)
+    args = (((-2.0 if positive else -1.0) * qf).to(torch.bfloat16),
+            qsq.contiguous(), cf.to(torch.bfloat16), bias, positive)
+    before = bs.launch_counts()["bucket_scan_bf16"]
     vals, idx = bs.bucket_min_scan(*args)
+    torch.cuda.synchronize()
+    assert bs.launch_counts()["bucket_scan_bf16"] == before + 1
     pv, pi = bs.bucket_min_scan_plain(*args)
     agree = idx == pi
     assert float(agree.float().mean()) >= 0.99
     torch.testing.assert_close(vals[agree], pv[agree], rtol=4e-5, atol=1e-2)
+    assert torch.equal(torch.isinf(vals[agree]), torch.isinf(pv[agree]))
+    # an all-excluded bucket decodes to +inf at its lowest chunk
+    dead = torch.isinf(pv)
+    assert torch.isinf(vals[dead]).all()
+    lane = torch.arange(n // 128, device=dev) % 128
+    group = torch.arange(n // 128, device=dev) // 128
+    lowest = (group * GROUP + lane).to(torch.int32).expand(b, -1)
+    assert torch.equal(idx[dead], lowest[dead])
 
 
 @pytest.mark.cuda

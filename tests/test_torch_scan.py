@@ -137,6 +137,102 @@ def test_k2_plain_matches_pallas(rng, positive):
                                rtol=4e-5, atol=1e-2)
 
 
+@pytest.mark.parametrize("positive", [True, False])
+def test_k2_plain_matches_pallas_one_query_mostly_excluded(rng, positive):
+    """B = 1 with 99% of the rows excluded, as a hybrid request runs K2:
+    most buckets hold no qualified row and decode to +inf at their lowest
+    chunk on both sides."""
+    n, d = 2 * ps.GROUP, 128
+    n_rows = n - 300
+    q = rng.standard_normal((1, d)).astype(np.float32)
+    c = np.zeros((n, d), np.float32)
+    c[:n_rows] = rng.standard_normal((n_rows, d))
+    q_lp = np.asarray(jnp.asarray((-2.0 if positive else -1.0) * q,
+                                  jnp.bfloat16).astype(jnp.float32))
+    c_lp = np.asarray(jnp.asarray(c, jnp.bfloat16).astype(jnp.float32))
+    qsq = (q ** 2).sum(1).astype(np.float32) if positive \
+        else np.zeros(1, np.float32)
+    bias = (c ** 2).sum(1).astype(np.float32) if positive \
+        else np.zeros(n, np.float32)
+    bias[rng.random(n) >= 0.01] = np.inf
+    bias[n_rows:] = np.inf
+    vals, idx = ps.bucket_min_scan(
+        jnp.asarray(q_lp, jnp.bfloat16), jnp.asarray(qsq)[:, None],
+        jnp.asarray(c_lp, jnp.bfloat16), jnp.asarray(bias)[None],
+        positive=positive, block_b=1, interpret=True)
+    gv, gi = bs.bucket_min_scan(
+        _t(q_lp).to(torch.bfloat16), _t(qsq),
+        _t(c_lp[:n_rows]).to(torch.bfloat16), _t(bias), positive)
+    vals, idx = np.asarray(vals), np.asarray(idx)
+    dead = np.isinf(vals)
+    assert dead.mean() > 0.2  # most buckets are empty under a 1% filter
+    agree = gi.numpy() == idx
+    assert agree.mean() >= 0.99
+    np.testing.assert_array_equal(np.isinf(gv.numpy()), dead)
+    np.testing.assert_allclose(gv.numpy()[agree & ~dead], vals[agree & ~dead],
+                               rtol=4e-5, atol=1e-2)
+    lowest = (np.arange(n // 128) // 128) * ps.GROUP + np.arange(n // 128) % 128
+    np.testing.assert_array_equal(gi.numpy()[dead], np.broadcast_to(
+        lowest, dead.shape)[dead])
+
+
+@pytest.mark.parametrize("positive", [True, False])
+def test_k2_plain_at_d48_matches_reference(rng, positive):
+    """d 48 (not a multiple of 128, so no Pallas run): the plain version
+    against the JAX oracle, which returns unquantized vals and the argmin."""
+    b, n, d = 5, 2 * ps.GROUP, 48
+    n_rows = n - 999
+    q = rng.standard_normal((b, d)).astype(np.float32)
+    c = np.zeros((n, d), np.float32)
+    c[:n_rows] = rng.standard_normal((n_rows, d))
+    q_lp = jnp.asarray((-2.0 if positive else -1.0) * q, jnp.bfloat16)
+    c_lp = jnp.asarray(c, jnp.bfloat16)
+    qsq = (q ** 2).sum(1).astype(np.float32) if positive \
+        else np.zeros(b, np.float32)
+    bias = (c ** 2).sum(1).astype(np.float32) if positive \
+        else np.zeros(n, np.float32)
+    bias[rng.random(n) < 0.05] = np.inf
+    bias[n_rows:] = np.inf
+    rv, ri = ps.bucket_min_scan_reference(
+        q_lp, jnp.asarray(qsq)[:, None], c_lp, jnp.asarray(bias)[None])
+    gv, gi = bs.bucket_min_scan(
+        _t(np.asarray(q_lp.astype(jnp.float32))).to(torch.bfloat16), _t(qsq),
+        _t(np.asarray(c_lp.astype(jnp.float32))[:n_rows]).to(torch.bfloat16),
+        _t(bias), positive)
+    rv, ri = np.asarray(rv), np.asarray(ri)
+    agree = gi.numpy() == ri
+    assert agree.mean() >= 0.99
+    np.testing.assert_allclose(gv.numpy()[agree], rv[agree],
+                               rtol=4e-5, atol=1e-2)
+
+
+@pytest.mark.parametrize("d", [8, 128, 768])
+def test_k2_query_tile(d):
+    """BQ is a multiple of 8 in [8, 128] and its shared memory fits; it
+    covers min(B, 128) wherever that fits, and otherwise is the widest tile
+    that does (104 at d 768)."""
+    for b in range(1, 20001):
+        bq = bs.k2_query_tile(b, d)
+        assert bq % 8 == 0 and 8 <= bq <= 128
+        assert bs.k2_smem_bytes(bq, d) <= bs.K2_MAX_SMEM
+        want = min(bs.round_up(b, 8), 128)
+        if bs.k2_smem_bytes(want, d) <= bs.K2_MAX_SMEM:
+            assert bq == want >= min(b, 128)
+        else:
+            assert bq < want
+            assert bs.k2_smem_bytes(bq + 8, d) > bs.K2_MAX_SMEM
+    assert bs.k2_query_tile(1, d) == 8
+    assert bs.k2_query_tile(20000, d) == (104 if d == 768 else 128)
+
+
+def test_k2_query_tile_bounds_d():
+    top = bs.k2_max_dim()
+    assert top % 8 == 0 and top >= 1800  # at least the earlier kernel's range
+    assert bs.k2_query_tile(1, top) == 8
+    with pytest.raises(ValueError):
+        bs.k2_query_tile(1, top + 8)
+
+
 def test_wrappers_reject_bad_arguments():
     q = torch.zeros((4, 128), dtype=torch.int8)
     c = torch.zeros((10, 128), dtype=torch.int8)

@@ -102,6 +102,27 @@ def test_fused_bf16_matches_jax(rng, metric, block_rows):
     assert (np.diff(td.numpy(), axis=1) >= 0).all()
 
 
+@pytest.mark.parametrize("d,copied", [(40, False), (36, True)])
+def test_fused_bf16_scans_the_mirror_in_place(rng, monkeypatch, d, copied):
+    """K2 needs only d % 8 == 0: at d 40 the corpus it is handed is the bf16
+    mirror itself, not a padded copy (d 36 still pads to 40)."""
+    seen = []
+    scan = ttopk.bs.bucket_min_scan
+
+    def spy(queries, qsq, corpus, bias, positive):
+        seen.append((queries.shape[1], corpus.shape[1], corpus.data_ptr()))
+        return scan(queries, qsq, corpus, bias, positive)
+
+    monkeypatch.setattr(ttopk.bs, "bucket_min_scan", spy)
+    q, c = _corpus(rng, 3, 1000, d)
+    lp = _t(c).to(torch.bfloat16)
+    ttopk.flat_topk_fused(_t(q), _t(c), lp, k=5)
+    assert len(seen) == 1
+    width = ttopk.bs.round_up(d, 8)
+    assert seen[0][:2] == (width, width)
+    assert (seen[0][2] == lp.data_ptr()) is not copied
+
+
 @pytest.mark.parametrize("metric", ["l2", "ip", "cosine"])
 @pytest.mark.parametrize("mode", ["exact", "approx"])
 def test_flat_topk_matches_jax(rng, metric, mode):

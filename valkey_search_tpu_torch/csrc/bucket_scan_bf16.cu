@@ -1,5 +1,6 @@
 // K2: bf16 coarse scan for Hopper (sm_90a): f32-accumulated bf16 dot
-// products with the bucketed min/argmin selection fused into the epilogue.
+// products on the tensor cores (wgmma) over corpus tiles staged by TMA, with
+// the bucketed min/argmin selection fused into the epilogue in registers.
 //
 // Replaces the TPU kernel valkey_search_tpu/ops/pallas_scan.py
 // bucket_min_scan (kernel body _kernel). For corpus row r of 16384-row
@@ -15,18 +16,34 @@
 // f32, so the kernel differs from the plain version only in the order of
 // the f32 sums.
 //
-// What bounds it on the card: f32 FMA issue. At 1M x 128 and B = 1024 the
-// scan is 134 G multiply-adds; the bf16 corpus is 256 MiB and each row
-// loaded feeds kTileQ = 32 queries, so memory traffic is small beside the
-// FMA work, which runs on the CUDA cores here. The design mirrors K1: the
-// 32-query tile is converted to f32 once and kept in shared memory (read as
-// 16-byte broadcasts, one load per four FMA), each thread owns one corpus
-// row per chunk (16-byte loads of 8 bf16, converted with the intrinsics),
-// the running min keys stay in registers, and the two 64-chunk halves of a
-// group merge with atomicMin into the packed key, which a second pass
-// decodes in place into vals and idx. bf16 wgmma on the tensor cores (about
-// 15x the FMA rate) is later work and leaves the output contract unchanged.
+// What bounds it on the card, and what the design does about it:
+// - Small B (one hybrid request is B = 1): device-memory bytes. The bf16
+//   corpus (256 MiB at 1M x 128) is read once per query tile, so the scan
+//   is a stream of the corpus, whose floor is ~0.08 ms at 3.35 TB/s. The
+//   earlier FMA body read it with one thread per row (16-byte loads 256
+//   bytes apart) in 128 blocks of 4 warps, ~0.24 TB/s. Here one producer
+//   warp keeps a ring of kStages TMA boxes in flight (128 rows x 64 bf16,
+//   16 KB, 128-byte swizzle: d/64 boxes per 128-row chunk, any d % 8 == 0),
+//   the query tile is only BQ = 8 wide at B <= 8 (wgmma's smallest N), and
+//   each group's 128 chunks split into slices until the grid has >= 264
+//   blocks (two per SM at small BQ), so every SM streams.
+// - Large B: multiply-adds, then the epilogue. The FMA body did 32 queries
+//   per row on the CUDA cores (~22 TFLOP/s). Here corpus rows are wgmma's M
+//   side (two consumer warpgroups of 64 lanes each), the query tile (BQ up
+//   to 128, resident in shared memory for the whole block) its N side, both
+//   K-major, so the products run on the tensor cores. The epilogue (bias,
+//   ||q||^2, key, chunk, min: ~4 operations a score) runs on the
+//   accumulator fragment in registers: each thread owns the same (lane,
+//   query) pairs in every chunk, so its running min keys never leave
+//   registers. The two warpgroups wait on the ring independently, so one's
+//   epilogue overlaps the other's wgmma.
+// TMA fills rows past n_rows and columns past d with zeros, which gives the
+// zero-vector tail and the k-pad with no copy. Slices of a group merge with
+// atomicMin into the INT32_MAX-filled packed keys (order-free, so the
+// result does not depend on block order), which a second pass decodes in
+// place into vals and idx.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -34,11 +51,24 @@
 namespace {
 
 constexpr int kBucket = 128;          // lanes = survivor columns per group
-constexpr int kGroup = 16384;         // rows per group (128 chunks)
-constexpr int kTileQ = 32;            // queries per block
-constexpr int kChunksPerBlock = 64;   // chunk slice folded by one block
-constexpr int kSplits = kGroup / kBucket / kChunksPerBlock;
+constexpr int kChunks = 128;          // chunks of 128 rows per group
+constexpr int kGroup = kChunks * kBucket;
+constexpr int kBoxCols = 64;          // bf16 columns per box: 128 bytes
+constexpr int kBoxBytes = kBucket * kBoxCols * 2;
+constexpr int kStages = 4;            // corpus boxes in flight per block
+constexpr int kThreads = 384;         // 2 consumer warpgroups + producer
+constexpr int kMinGrid = 264;         // blocks: two per SM of 132
 constexpr int kMaxSmem = 232448;      // per-block shared memory on sm_90
+constexpr long long kWaitCycles = 1LL << 32;  // ~2 s: trap, never hang
+
+// Shared memory of one block, in this order: the corpus ring, the query
+// tile (d/64 boxes of BQ rows), the ring's biases, the query norms, the
+// barriers; plus 1024 bytes to align the swizzled tiles. The wrapper's
+// k2_smem_bytes computes the same.
+__host__ __device__ constexpr int smem_bytes(int bq, int kb) {
+  return 1024 + kStages * kBoxBytes + kb * bq * 128 +
+         kStages * kBucket * 4 + 128 * 4 + (2 * kStages + 1) * 8;
+}
 
 __global__ void fill_int32_max(int32_t* __restrict__ p, long long n) {
   for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
@@ -47,87 +77,360 @@ __global__ void fill_int32_max(int32_t* __restrict__ p, long long n) {
   }
 }
 
-template <bool kPositive>
-__global__ void __launch_bounds__(kBucket)
-scan_bf16(const __nv_bfloat16* __restrict__ q, const float* __restrict__ qsq,
-          const __nv_bfloat16* __restrict__ c, const float* __restrict__ bias,
-          int32_t* __restrict__ packed, int b, int d, long long n_rows,
-          long long n_out) {
-  extern __shared__ float4 q_tile4[];  // [kTileQ][d / 4] f32
-  __shared__ float q_sq[kTileQ];
-  float* q_tile = reinterpret_cast<float*>(q_tile4);
-  const int lane = threadIdx.x;
-  const int d4 = d >> 2;
-  const int q0 = blockIdx.y * kTileQ;
-  const long long g = blockIdx.x / kSplits;
-  const int m0 = (blockIdx.x % kSplits) * kChunksPerBlock;
+// --- PTX: mbarriers, TMA, wgmma --------------------------------------------
 
-  for (int i = lane; i < kTileQ * d; i += kBucket) {
-    const int t = i / d;
-    q_tile[i] = q0 + t < b
-        ? __bfloat162float(q[(long long)(q0 + t) * d + (i - t * d)])
-        : 0.0f;
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed. A barrier that
+// never completes (a fault in this file) traps after ~2 s instead of
+// hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  long long start = 0;
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+    if (start == 0) {
+      start = clock64();
+    } else if (clock64() - start > kWaitCycles) {
+      asm volatile("trap;\n");
+    }
   }
-  if (lane < kTileQ) q_sq[lane] = kPositive && q0 + lane < b ? qsq[q0 + lane] : 0.0f;
+}
+
+// one box of a 2-D tensor map (col, row) into shared memory
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         int col, int row, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row),
+         "r"(bar)
+      : "memory");
+}
+
+// contiguous bytes (a multiple of 16, 16-byte aligned) into shared memory
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          int bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+
+// wgmma descriptor of a K-major tile of 128-byte rows, 128-byte swizzle,
+// 8-row atoms 1024 bytes apart; the tile starts 1024-byte aligned and a
+// k-step of 16 bf16 adds 32 bytes to the start address
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// D[64 x N] (+)= A[64 x 16] * B[16 x N], f32 += bf16 * bf16, A and B
+// K-major in shared memory; scale_d == 0 overwrites D
+template <int N>
+__device__ __forceinline__ void wgmma(float* d, uint64_t a, uint64_t b,
+                                      int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma<8>(float* d, uint64_t a, uint64_t b,
+                                          int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3}, "
+      "%4, %5, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma<16>(float* d, uint64_t a, uint64_t b,
+                                          int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma<32>(float* d, uint64_t a, uint64_t b,
+                                          int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma<64>(float* d, uint64_t a, uint64_t b,
+                                          int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma<128>(float* d, uint64_t a, uint64_t b,
+                                          int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// A query tile of BQ columns (a multiple of 8) as wgmma's of N = 128, 64,
+// 32, 16, 8. Piece n0 starts n0 rows into the B tile (n0 * 128 bytes, a
+// multiple of 1024) and writes acc[n0 / 2 ...]: the concatenated fragments
+// lay out exactly as one m64nBQk16's.
+template <int Rest, int N0 = 0>
+__device__ __forceinline__ void mma_tile(float* acc, uint64_t a, uint64_t b,
+                                         int scale_d) {
+  if constexpr (Rest > 0) {
+    constexpr int P = Rest >= 128 ? 128 : Rest >= 64 ? 64
+                    : Rest >= 32 ? 32 : Rest >= 16 ? 16 : 8;
+    wgmma<P>(acc + N0 / 2, a, b + (uint64_t)(N0 * 128 >> 4), scale_d);
+    mma_tile<Rest - P, N0 + P>(acc, a, b, scale_d);
+  }
+}
+
+// Fold one chunk's scores into the running keys. Fragment register r of
+// thread (warp w, lane t) in its warpgroup holds row 16w + t/4 (+8 when
+// r & 2) and query column 8 (r / 4) + 2 (t % 4) + (r & 1).
+template <int BQ, bool kPositive>
+__device__ __forceinline__ void fold_chunk(const float* acc, int32_t* best,
+                                           float b0, float b1,
+                                           const float* q_sq, int cq, int m) {
+#pragma unroll
+  for (int r = 0; r < BQ / 2; ++r) {
+    float s = acc[r] + ((r & 2) ? b1 : b0);
+    if (kPositive) s += q_sq[8 * (r >> 2) + cq + (r & 1)];
+    int32_t key = __float_as_int(s);
+    if (!kPositive) key ^= (key >> 31) & 0x7fffffff;
+    best[r] = min(best[r], (key & ~127) | m);
+  }
+}
+
+// One block: query tile qt (BQ queries from q0), group g, chunks
+// [m0, m0 + chunks). Threads 0-255 are two consumer warpgroups (lanes
+// 0-63 and 64-127 of every chunk); thread 256 issues the TMA loads.
+template <int BQ>
+__global__ void __launch_bounds__(kThreads, BQ <= 32 ? 2 : 1)
+scan_bf16(const __grid_constant__ CUtensorMap qmap,
+          const __grid_constant__ CUtensorMap cmap,
+          const float* __restrict__ qsq, const float* __restrict__ bias,
+          int32_t* __restrict__ packed, int b, int d, long long n_rows,
+          long long n_out, int chunks, int slices, int qtiles,
+          int positive) {
+  constexpr bool kBigTile = BQ > 32;  // one block per SM: move registers
+  extern __shared__ uint8_t smem_raw[];
+  const int kb_n = (d + kBoxCols - 1) / kBoxCols;
+  const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
+  uint8_t* const sbase = smem_raw + (base - smem_addr(smem_raw));
+  const uint32_t ring = base;
+  const uint32_t qtile = ring + kStages * kBoxBytes;
+  float* const bias_s = reinterpret_cast<float*>(
+      sbase + kStages * kBoxBytes + kb_n * BQ * 128);
+  float* const q_sq = bias_s + kStages * kBucket;
+  const uint32_t bars = smem_addr(q_sq + 128);
+  const uint32_t qbar = bars + 2 * kStages * 8;
+  auto full = [&](int s) { return bars + s * 8; };
+  auto empty = [&](int s) { return bars + (kStages + s) * 8; };
+
+  const int qt = blockIdx.x % qtiles;
+  const long long unit = blockIdx.x / qtiles;
+  const long long g = unit / slices;
+  const int m0 = (int)(unit % slices) * chunks;
+  const int q0 = qt * BQ;
+  const long long group_row = g * kGroup;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 256);  // every consumer thread releases
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
 
-  int32_t best[kTileQ];
-#pragma unroll
-  for (int t = 0; t < kTileQ; ++t) best[t] = INT32_MAX;
-
-  const long long row0 = g * kGroup + lane;
-  for (int m = m0; m < m0 + kChunksPerBlock; ++m) {
-    const long long row = row0 + (long long)m * kBucket;
-    float acc[kTileQ];
-#pragma unroll
-    for (int t = 0; t < kTileQ; ++t) acc[t] = 0.0f;
-    if (row < n_rows) {
-      const uint4* crow = reinterpret_cast<const uint4*>(c + row * d);
-      for (int k = 0; k < (d >> 3); ++k) {
-        const uint4 raw = __ldg(crow + k);
-        const __nv_bfloat162* pair =
-            reinterpret_cast<const __nv_bfloat162*>(&raw);
-        float cf[8];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float2 f = __bfloat1622float2(pair[j]);
-          cf[2 * j] = f.x;
-          cf[2 * j + 1] = f.y;
-        }
-#pragma unroll
-        for (int t = 0; t < kTileQ; ++t) {
-          const float4 a = q_tile4[t * d4 + 2 * k];
-          const float4 e = q_tile4[t * d4 + 2 * k + 1];
-          float s = acc[t];
-          s = fmaf(cf[0], a.x, s);
-          s = fmaf(cf[1], a.y, s);
-          s = fmaf(cf[2], a.z, s);
-          s = fmaf(cf[3], a.w, s);
-          s = fmaf(cf[4], e.x, s);
-          s = fmaf(cf[5], e.y, s);
-          s = fmaf(cf[6], e.z, s);
-          s = fmaf(cf[7], e.w, s);
-          acc[t] = s;
+  if (threadIdx.x >= 256) {
+    // --- producer warpgroup: one thread issues every load ---
+    if constexpr (kBigTile) {
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    }
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(qbar, kb_n * BQ * 128);
+      for (int kb = 0; kb < kb_n; ++kb) {
+        tma_load(qtile + kb * BQ * 128, &qmap, kb * kBoxCols, q0, qbar);
+      }
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int m = m0; m < m0 + chunks; ++m) {
+        const long long row0 = group_row + (long long)m * kBucket;
+        if (row0 >= n_rows) break;  // the rest is the zero-vector tail
+        for (int kb = 0; kb < kb_n; ++kb) {
+          mbar_wait(empty(stage), phase ^ 1);
+          mbar_expect_tx(full(stage), kBoxBytes + (kb == 0 ? kBucket * 4 : 0));
+          tma_load(ring + stage * kBoxBytes, &cmap, kb * kBoxCols, (int)row0,
+                   full(stage));
+          if (kb == 0) {
+            bulk_load(smem_addr(bias_s + stage * kBucket), bias + row0,
+                      kBucket * 4, full(stage));
+          }
+          if (++stage == kStages) {
+            stage = 0;
+            phase ^= 1;
+          }
         }
       }
     }
-    const float bv = __ldg(bias + row);
-#pragma unroll
-    for (int t = 0; t < kTileQ; ++t) {
-      float s = acc[t] + bv;
-      if (kPositive) s = s + q_sq[t];
-      int32_t key = __float_as_int(s);
-      if (!kPositive) key ^= (key >> 31) & 0x7fffffff;
-      key = (key & ~127) | m;
-      best[t] = min(best[t], key);
+  } else {
+    // --- consumer warpgroups ---
+    if constexpr (kBigTile) {
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
     }
-  }
+    const int wg = threadIdx.x >> 7;
+    const int warp = (threadIdx.x >> 5) & 3;
+    const int lane = threadIdx.x & 31;
+    const int row_a = 64 * wg + 16 * warp + (lane >> 2);  // +8: row_b
+    const int cq = 2 * (lane & 3);
+    if (threadIdx.x < BQ) {
+      q_sq[threadIdx.x] =
+          positive && q0 + (int)threadIdx.x < b ? qsq[q0 + threadIdx.x] : 0.0f;
+    }
+    asm volatile("bar.sync 1, 256;\n" ::: "memory");
 
-  const long long col = g * kBucket + lane;
+    float acc[BQ / 2];
+    int32_t best[BQ / 2];
 #pragma unroll
-  for (int t = 0; t < kTileQ; ++t) {
-    if (q0 + t < b) {
-      atomicMin(packed + (long long)(q0 + t) * n_out + col, best[t]);
+    for (int r = 0; r < BQ / 2; ++r) best[r] = INT32_MAX;
+    mbar_wait(qbar, 0);
+
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int m = m0; m < m0 + chunks; ++m) {
+      const long long row0 = group_row + (long long)m * kBucket;
+      float b0 = 0.0f, b1 = 0.0f;
+      if (row0 < n_rows) {
+        for (int kb = 0; kb < kb_n; ++kb) {
+          mbar_wait(full(stage), phase);
+          if (kb == 0) {
+            b0 = bias_s[stage * kBucket + row_a];
+            b1 = bias_s[stage * kBucket + row_a + 8];
+          }
+          const uint64_t da = smem_desc(ring + stage * kBoxBytes + wg * 8192);
+          const uint64_t db = smem_desc(qtile + kb * BQ * 128);
+          // all four k-steps: columns past d are zeros in both tiles, and
+          // a wgmma skipped on a branch would serialize the others
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            mma_tile<BQ>(acc, da + 2 * kk, db + 2 * kk, kb | kk);
+          }
+          wgmma_commit();
+          wgmma_wait_all();
+          mbar_arrive(empty(stage));
+          if (++stage == kStages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      } else {  // past the corpus: zero vectors
+#pragma unroll
+        for (int r = 0; r < BQ / 2; ++r) acc[r] = 0.0f;
+        b0 = __ldg(bias + row0 + row_a);
+        b1 = __ldg(bias + row0 + row_a + 8);
+      }
+      if (positive) {
+        fold_chunk<BQ, true>(acc, best, b0, b1, q_sq, cq, m);
+      } else {
+        fold_chunk<BQ, false>(acc, best, b0, b1, q_sq, cq, m);
+      }
+    }
+
+    const long long col = g * kBucket + row_a;
+#pragma unroll
+    for (int r = 0; r < BQ / 2; ++r) {
+      const int q = q0 + 8 * (r >> 2) + cq + (r & 1);
+      if (q < b) {
+        atomicMin(packed + (long long)q * n_out + col + ((r & 2) ? 8 : 0),
+                  best[r]);
+      }
     }
   }
 }
@@ -148,59 +451,146 @@ __global__ void decode(float* __restrict__ vals, int32_t* __restrict__ idx,
   }
 }
 
-template <bool kPositive>
-cudaError_t launch(const __nv_bfloat16* q, const float* qsq,
-                   const __nv_bfloat16* c, const float* bias, float* vals,
-                   int32_t* idx, int b, int d, long long n_rows, long long n,
-                   cudaStream_t stream) {
-  const long long n_out = n / kBucket;
-  const long long total = (long long)b * n_out;
-  const size_t smem = (size_t)kTileQ * d * sizeof(float);
-  if (smem > kMaxSmem - kTileQ * sizeof(float)) return cudaErrorInvalidValue;
-  if (smem > 48 * 1024 - kTileQ * sizeof(float)) {
+// --- host side --------------------------------------------------------------
+
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, found through the CUDA runtime so that
+// the library needs no link against libcuda
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = []() -> EncodeTiled {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (e != cudaSuccess || found != cudaDriverEntryPointSuccess) {
+      return nullptr;
+    }
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// [rows, d] bf16, row-major, in boxes of box_rows x 64 with 128-byte
+// swizzle; reads past the edges fill zeros
+cudaError_t tensor_map(CUtensorMap* map, const void* ptr, long long rows,
+                       int d, int box_rows) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)d, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)d * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)kBoxCols, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                      const_cast<void*>(ptr), dims, strides, box, elem,
+                      CU_TENSOR_MAP_INTERLEAVE_NONE,
+                      CU_TENSOR_MAP_SWIZZLE_128B,
+                      CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int BQ>
+cudaError_t launch_scan(const CUtensorMap& qmap, const CUtensorMap& cmap,
+                        const float* qsq, const float* bias, int32_t* packed,
+                        int b, int d, long long n_rows, long long n,
+                        int positive, cudaStream_t stream) {
+  const int smem = smem_bytes(BQ, (d + kBoxCols - 1) / kBoxCols);
+  static bool ready = false;  // attributes checked once per tile width
+  if (!ready) {
     cudaError_t e = cudaFuncSetAttribute(
-        scan_bf16<kPositive>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        scan_bf16<BQ>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
     if (e != cudaSuccess) return e;
+    if (BQ > 32) {
+      // setmaxnreg moves 128 x (168 - 40) registers to the consumers; it
+      // would wait forever for registers the launch did not allocate
+      cudaFuncAttributes attr;
+      e = cudaFuncGetAttributes(&attr, scan_bf16<BQ>);
+      if (e != cudaSuccess) return e;
+      if (attr.numRegs * kThreads < 40 * 128 + 232 * 256) {
+        return cudaErrorInvalidConfiguration;
+      }
+    }
+    ready = true;
   }
-  fill_int32_max<<<1024, 256, 0, stream>>>(idx, total);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  dim3 grid((unsigned)(n / kGroup * kSplits),
-            (unsigned)((b + kTileQ - 1) / kTileQ));
-  scan_bf16<kPositive><<<grid, kBucket, smem, stream>>>(
-      q, qsq, c, bias, idx, b, d, n_rows, n_out);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  decode<kPositive><<<1024, 256, 0, stream>>>(vals, idx, total, n_out);
+  const long long groups = n / kGroup;
+  const int qtiles = (b + BQ - 1) / BQ;
+  int slices = 1;  // chunk slices per group: fill the card at small B
+  while (slices < kChunks && groups * qtiles * slices < kMinGrid) slices *= 2;
+  const long long blocks = groups * qtiles * slices;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  scan_bf16<BQ><<<(unsigned)blocks, kThreads, smem, stream>>>(
+      qmap, cmap, qsq, bias, packed, b, d, n_rows, n / kBucket,
+      kChunks / slices, slices, qtiles, positive);
   return cudaGetLastError();
 }
 
+using LaunchFn = cudaError_t (*)(const CUtensorMap&, const CUtensorMap&,
+                                 const float*, const float*, int32_t*, int,
+                                 int, long long, long long, int,
+                                 cudaStream_t);
+
+constexpr LaunchFn kLaunch[] = {
+    launch_scan<8>,  launch_scan<16>, launch_scan<24>,  launch_scan<32>,
+    launch_scan<40>, launch_scan<48>, launch_scan<56>,  launch_scan<64>,
+    launch_scan<72>, launch_scan<80>, launch_scan<88>,  launch_scan<96>,
+    launch_scan<104>, launch_scan<112>, launch_scan<120>, launch_scan<128>,
+};
+
 }  // namespace
 
-// q [b, d] bf16 (alpha folded in), qsq [b] f32, c [n_rows, d] bf16
-// (row-major, 16-byte aligned, d % 8 == 0), bias [n] f32 with n % 16384 == 0
-// and n_rows <= n; vals [b, n / 128] f32 and idx [b, n / 128] int32 are
-// written in full. Launches on `stream` and returns the CUDA error code.
+// q [b, d] bf16 (alpha folded in), qsq [b] f32, c [n_rows, d] bf16 and
+// bias [n] f32 (row-major, 16-byte aligned, d % 8 == 0, n % 16384 == 0,
+// n_rows <= n); vals [b, n / 128] f32 and idx [b, n / 128] int32 are
+// written in full. bq is the query tile (a multiple of 8 in [8, 128] whose
+// shared memory fits: the wrapper's k2_query_tile). Launches on `stream`
+// and returns the CUDA error code.
 extern "C" int bucket_scan_bf16(const void* q, const void* qsq, const void* c,
                                 const void* bias, void* vals, void* idx, int b,
                                 int d, long long n_rows, long long n,
-                                int positive, void* stream) {
+                                int positive, int bq, void* stream) {
   if (b <= 0 || n <= 0) return 0;
-  if (d <= 0 || d % 8 || n_rows < 0 || n_rows > n || n % kGroup) {
+  if (d <= 0 || d % 8 || n_rows < 0 || n_rows > n || n % kGroup ||
+      bq < 8 || bq > 128 || bq % 8 ||
+      smem_bytes(bq, (d + kBoxCols - 1) / kBoxCols) > kMaxSmem) {
     return (int)cudaErrorInvalidValue;
   }
   auto s = static_cast<cudaStream_t>(stream);
-  auto qp = static_cast<const __nv_bfloat16*>(q);
-  auto cp = static_cast<const __nv_bfloat16*>(c);
-  auto sq = static_cast<const float*>(qsq);
-  auto bp = static_cast<const float*>(bias);
-  auto vp = static_cast<float*>(vals);
   auto ip = static_cast<int32_t*>(idx);
-  cudaError_t e = positive
-      ? launch<true>(qp, sq, cp, bp, vp, ip, b, d, n_rows, n, s)
-      : launch<false>(qp, sq, cp, bp, vp, ip, b, d, n_rows, n, s);
-  return (int)e;
+  const long long n_out = n / kBucket;
+  const long long total = (long long)b * n_out;
+  CUtensorMap qmap, cmap;
+  cudaError_t e = tensor_map(&qmap, q, b, d, bq);
+  // an empty corpus is all tail: its map is never read, any valid one does
+  if (e == cudaSuccess) {
+    e = n_rows > 0 ? tensor_map(&cmap, c, n_rows, d, kBucket)
+                   : tensor_map(&cmap, q, b, d, kBucket);
+  }
+  if (e != cudaSuccess) return (int)e;
+  fill_int32_max<<<1024, 256, 0, s>>>(ip, total);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  e = kLaunch[bq / 8 - 1](qmap, cmap, static_cast<const float*>(qsq),
+                          static_cast<const float*>(bias), ip, b, d, n_rows,
+                          n, positive, s);
+  if (e != cudaSuccess) return (int)e;
+  if (positive) {
+    decode<true><<<1024, 256, 0, s>>>(static_cast<float*>(vals), ip, total,
+                                      n_out);
+  } else {
+    decode<false><<<1024, 256, 0, s>>>(static_cast<float*>(vals), ip, total,
+                                       n_out);
+  }
+  return (int)cudaGetLastError();
 }
 
 extern "C" const char* bucket_scan_bf16_error_string(int code) {

@@ -256,6 +256,44 @@ def bucket_min_scan_i8_packed(
 # ---------------------------------------------------------------------------
 
 
+# The CUDA kernel's shared memory (csrc/bucket_scan_bf16.cu smem_bytes): a
+# ring of K2_STAGES corpus boxes of 128 rows x 64 bf16, the resident query
+# tile (d / 64 boxes of BQ rows), the ring's biases, the query norms, the
+# barriers, and 1024 bytes to align the swizzled tiles.
+K2_STAGES = 4
+K2_BOX_COLS = 64
+K2_MAX_SMEM = 232448  # per-block shared memory on sm_90
+K2_MAX_TILE = 128
+
+
+def k2_smem_bytes(bq: int, d: int) -> int:
+    kb = -(-d // K2_BOX_COLS)
+    return (1024 + K2_STAGES * BUCKET * K2_BOX_COLS * 2 + kb * bq * 128
+            + K2_STAGES * BUCKET * 4 + 128 * 4 + (2 * K2_STAGES + 1) * 8)
+
+
+def k2_query_tile(b: int, d: int) -> int:
+    """K2's query tile BQ (the N of its wgmma) for B queries of dim d: the
+    multiple of 8 that covers min(B, 128), shrunk by 8 until the resident
+    tile and the corpus ring fit in shared memory (d 768 caps it at 104).
+    Raises past the largest d that fits at BQ = 8."""
+    bq = min(round_up(max(b, 1), 8), K2_MAX_TILE)
+    while bq > 8 and k2_smem_bytes(bq, d) > K2_MAX_SMEM:
+        bq -= 8
+    if k2_smem_bytes(bq, d) > K2_MAX_SMEM:
+        raise ValueError(f"the CUDA bf16 scan takes d up to "
+                         f"{k2_max_dim()}, not {d}")
+    return bq
+
+
+def k2_max_dim() -> int:
+    """The largest d (a multiple of 8) whose 8-query tile fits."""
+    d = 8
+    while k2_smem_bytes(8, d + 8) <= K2_MAX_SMEM:
+        d += 8
+    return d
+
+
 def bucket_min_scan_plain(
     queries: torch.Tensor,
     qsq: torch.Tensor,
@@ -305,7 +343,8 @@ def bucket_min_scan(
     """K2: queries [B, d] bf16 with alpha folded in, qsq [B] f32 (read only
     when ``positive``), corpus [n_rows, d] bf16, bias [n] f32 (+inf =
     excluded; n % GROUP == 0, n_rows <= n) → (vals [B, n/128] f32,
-    idx [B, n/128] int32 absolute rows)."""
+    idx [B, n/128] int32 absolute rows). The CUDA kernel takes d % 8 == 0
+    up to ``k2_max_dim()`` and tiles the queries by ``k2_query_tile``."""
     _check_scan_args(queries, corpus, bias, torch.bfloat16, torch.float32,
                      GROUP, align=8)
     if qsq.dtype != torch.float32 or qsq.shape != (queries.shape[0],) \
@@ -315,6 +354,7 @@ def bucket_min_scan(
         return bucket_min_scan_plain(queries, qsq, corpus, bias, positive)
     b, d = queries.shape
     n = bias.shape[0]
+    bq = k2_query_tile(b, d)
     vals = torch.empty((b, n // BUCKET), dtype=torch.float32,
                        device=queries.device)
     idx = torch.empty((b, n // BUCKET), dtype=torch.int32,
@@ -324,7 +364,7 @@ def bucket_min_scan(
         rc = lib.bucket_scan_bf16(
             queries.data_ptr(), qsq.data_ptr(), corpus.data_ptr(),
             bias.data_ptr(), vals.data_ptr(), idx.data_ptr(), b, d,
-            corpus.shape[0], n, int(positive),
+            corpus.shape[0], n, int(positive), bq,
             torch.cuda.current_stream().cuda_stream,
         )
     _raise_on(lib, rc, "bucket_scan_bf16")
@@ -475,7 +515,7 @@ def _check_scan_args(queries, corpus, bias, in_dtype, bias_dtype, quantum,
         raise ValueError("the CUDA scan needs contiguous tensors")
     if queries.shape[1] % align:
         raise ValueError(f"the CUDA scan needs d % {align} == 0 (pad d)")
-    for t in (queries, corpus):
+    for t in (queries, corpus, bias):
         if t.numel() and t.data_ptr() % 16:
             raise ValueError("the CUDA scan needs 16-byte aligned rows")
 
@@ -491,7 +531,7 @@ _SIGNATURES = {
     ],
     "bucket_scan_bf16": [
         _P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
-        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, _P,
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P,
     ],
     "bucket_scan_i8": [
         _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,

@@ -186,7 +186,10 @@ def flat_topk_fused(
             coarse_factor = 3
     kc = min(coarse_factor * k, cap)
     d_pad = bs.round_up(d, 128)   # the layout constants' dim
-    pad_d = -d % 16               # the kernels read 16-byte row pieces
+    # K1 reads 16-byte row pieces; K2's TMA boxes need only 16-byte rows
+    # and zero-fill the k-step themselves, so a bf16 corpus at d % 8 == 0
+    # is scanned in place
+    pad_d = -d % (16 if use_i8 else 8)
 
     if use_i8:
         if span is None:
