@@ -12,13 +12,21 @@ Phases (each failure exits non-zero; there is no CPU path):
               (bucket_scan_i8_packed.cu) and K2 (bucket_scan_bf16.cu); the
               native text tier (g++) builds beside them;
 3. kernels  - each kernel against its plain PyTorch version at
-              N = 1,048,576: B = 256 with 5% of the rows excluded, and K1
-              (both bodies) and K2 also at B = 1 with 99% excluded, as a
-              hybrid request under a 1% filter gives them; K2 also at
-              B = 1, 7, 64 and 1,024 (l2), B = 1 (ip) and d 768 at B = 64
-              (K2_CASES), each with its query tile BQ; K1 keys and K3
-              vals/idx bit-identical, K2 idx agreeing on >= 99% of columns
-              and vals within rtol 4e-5, atol 1e-2;
+              N = 1,048,576 (1,000 padded rows), each case with its query
+              tile BQ, kernel and plain times (CUDA events) and its share
+              of the bound (bytes at 3.35 TB/s or operations at the int8 /
+              bf16 tensor-core peak, whichever is larger): K1 at span 1
+              and 8, d 128, B = 1, 7, 64, 256 and 1,024 with 5% of the rows
+              excluded and B = 1 with 99% excluded (a hybrid request under
+              a 1% filter), span 4 d 256 at B = 256, span 8 d 768 at B = 64
+              and 256 (K1_CASES); K2 at B = 1 .. 1,024 (l2), ip, d 768 and
+              B = 1 with 99% excluded (K2_CASES); K3 at d 128 and 768,
+              B = 1, 256 and 1,024, with negative scores (K3_CASES). K1
+              keys and K3 vals/idx bit-identical, K2 idx agreeing on
+              >= 99% of columns and vals within rtol 4e-5, atol 1e-2. One
+              PyTorch call times the product alone at B = 256 and 1,024
+              (torch._int_mm for K1 and K3, a bf16 matmul for K2) as the
+              kernels' library yardstick; the port never calls it;
 4. slice    - FT.CREATE (v VECTOR FLAT, cat TAG, price NUMERIC) + 1,000,000
               HSETs of all three fields (the bench's seeded SIFT-like recipe,
               seeded tags and prices) + FT.SEARCH KNN 10 from 16 threads,
@@ -62,12 +70,26 @@ RECALL_FLOOR = 0.99
 THREADS = 16
 KERNEL_B = 256
 KERNEL_N = 1_048_576
+# K1's kernel-phase cases: (B, span, d, kept share of the rows)
+K1_CASES = tuple((b, span, 128, 0.95) for span in (1, 8)
+                 for b in (1, 7, 64, 256, 1024)) + (
+    (1, 1, 128, 0.01), (1, 8, 128, 0.01), (256, 4, 256, 0.95),
+    (64, 8, 768, 0.95), (256, 8, 768, 0.95))
+# K3's: (B, d), 5% of the rows excluded, negative scores present
+K3_CASES = tuple((b, d) for d in (128, 768) for b in (1, 256, 1024))
 # K2's kernel-phase cases: (B, positive, d, kept share of the rows)
 K2_CASES = ((1, True, 128, 0.95), (7, True, 128, 0.95), (64, True, 128, 0.95),
             (256, True, 128, 0.95), (1024, True, 128, 0.95),
             (1, False, 128, 0.95), (256, False, 128, 0.95),
             (64, True, 768, 0.95), (1, True, 128, 0.01))
 QPS_BATCHES = (1024, 16384)
+# the bound of a kernel (published H100 SXM peaks):
+# device-memory bytes at 3.35 TB/s, dense int8 and bf16 tensor-core peaks
+HBM_BYTES_PER_S = 3.35e12
+INT8_OPS_PER_S = 1979e12
+BF16_FLOPS_PER_S = 989e12
+# batches at which one library call times the scans' product alone
+LIBRARY_BATCHES = (256, 1024)
 
 
 class SmokeFailure(RuntimeError):
@@ -172,6 +194,26 @@ def time_ms(torch, fn, reps: int = 5) -> float:
 # ---------------------------------------------------------------------------
 
 
+def bound(bytes_moved: float, ops: float, peak: float):
+    """(bound_ms, bound_by): the least time the card could take for the
+    work, the larger of its bytes over HBM_BYTES_PER_S and its operations
+    over ``peak``."""
+    by_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / peak * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                            "operations")
+
+
+def library_ms(torch, fn, gpu: str, what: str):
+    """Time of one PyTorch call computing the product alone (the yardstick
+    for the scans; the port never calls it), or None if it cannot run."""
+    try:
+        return time_ms(torch, fn, reps=3)
+    except (RuntimeError, ValueError) as exc:
+        log(f"library call {what} did not run: {exc}", gpu)
+        return None
+
+
 def kernel_phase(torch, bs, dev, gpu: str) -> dict:
     """Each kernel against its plain version on the card; returns per-kernel
     records keyed like bs.LAUNCHES."""
@@ -188,16 +230,25 @@ def kernel_phase(torch, bs, dev, gpu: str) -> dict:
         out[n_rows:] = True
         return out
 
-    # B = 256 with 5% excluded rows (batched unfiltered KNN), then B = 1
-    # with 99% excluded (a hybrid request: one launch per request, a 1%
-    # filter folded into the bias, mostly excluded buckets)
-    for b, span, d, kept in ((KERNEL_B, 1, 128, 0.95), (KERNEL_B, 8, 128, 0.95),
-                             (KERNEL_B, 4, 256, 0.95), (KERNEL_B, 8, 768, 0.95),
-                             (1, 1, 128, 0.01), (1, 8, 128, 0.01)):
+    corpora = {}
+
+    def int8_corpus(d: int):
+        """One seeded int8 corpus per dim, shared by K1's and K3's cases."""
+        if d not in corpora:
+            corpora.clear()
+            torch.cuda.empty_cache()
+            corpora[d] = torch.randint(-127, 128, (n_rows, d), generator=gen,
+                                       device=dev, dtype=torch.int8)
+        return corpora[d]
+
+    library = {}  # torch._int_mm by B: the product of K1 and K3 alone
+    # K1 over its grid (K1_CASES): bit-identical keys, kernel and plain
+    # times, the share of the bound; B = 1 with 99% excluded is a hybrid
+    # request (one launch per request, a 1% filter folded into the bias)
+    for b, span, d, kept in K1_CASES:
         q = torch.randint(-127, 128, (b, d), generator=gen, device=dev,
                           dtype=torch.int8)
-        c = torch.randint(-127, 128, (n_rows, d), generator=gen, device=dev,
-                          dtype=torch.int8)
+        c = int8_corpus(d)
         d_pad = bs.round_up(d, 128)
         dotmax, clamp, sentinel, pre_shift, _ = bs.i8_packed_layout(d_pad, span)
         bias = torch.randint(0, clamp, (n,), generator=gen, device=dev,
@@ -210,26 +261,56 @@ def kernel_phase(torch, bs, dev, gpu: str) -> dict:
         torch.cuda.synchronize()
         same = torch.equal(got, want)
         n_bad = int((got != want).sum())
+        del got, want
         ms = time_ms(torch, lambda: bs.bucket_min_scan_i8_packed(q, c, bias, span))
         plain_ms = time_ms(
             torch, lambda: bs.bucket_min_scan_i8_packed_plain(q, c, bias, span),
             reps=2)
-        log(f"K1 span={span} d={d} pre_shift={pre_shift} B={b} N={n} "
-            f"kept={kept}: bit-identical={same} (mismatches {n_bad}), kernel "
-            f"{ms:.3f} ms, plain {plain_ms:.3f} ms", gpu)
+        bound_ms, bound_by = bound(
+            b * d + n_rows * d + 4 * n + 4 * b * n // (128 * span),
+            2 * b * n_rows * d, INT8_OPS_PER_S)
+        lib = None
+        if b in LIBRARY_BATCHES and span == 1 and d == 128:
+            lib = library_ms(torch, lambda: torch._int_mm(q, c.t()), gpu,
+                             f"torch._int_mm B={b}")
+        log(f"K1 span={span} d={d} pre_shift={pre_shift} B={b} "
+            f"BQ={bs.k1_query_tile(b, d)} N={n} kept={kept}: bit-identical="
+            f"{same} (mismatches {n_bad}), kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}), share "
+            f"{bound_ms / ms:.3f}"
+            + (f", torch._int_mm {lib:.4f} ms" if lib is not None else ""), gpu)
         check(same, f"K1 B={b} span={span} d={d}: {n_bad} keys differ from "
               "plain")
         name = ("bucket_scan_i8_packed[pre_shift=0]" if pre_shift == 0
                 else "bucket_scan_i8_packed[pre_shift>0]")
-        # the main path's dim (128) at B = 256 is the one recorded
-        if d == 128 and b == KERNEL_B:
-            records[name] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms}
-        del q, c, bias, got, want
+        # the main path's dim (128) at B = 256 is the one recorded; B = 1
+        # under a 1% filter (the hybrid request) and B = 1,024 beside it
+        if d == 128 and b == KERNEL_B and kept > 0.5:
+            records.setdefault(name, {}).update({
+                "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "bq": bs.k1_query_tile(b, d)})
+        elif d == 128 and b == 1 and kept < 0.5:
+            records.setdefault(name, {}).update({
+                "ms_b1": ms, "plain_ms_b1": plain_ms, "bound_ms_b1": bound_ms})
+        elif d == 128 and b == 1024:
+            records.setdefault(name, {}).update({
+                "ms_b1024": ms, "plain_ms_b1024": plain_ms,
+                "bound_ms_b1024": bound_ms})
+        if lib is not None:
+            library[b] = lib
+        del q, bias
+    for name in ("bucket_scan_i8_packed[pre_shift=0]",
+                 "bucket_scan_i8_packed[pre_shift>0]"):
+        records[name]["library_ms"] = library.get(KERNEL_B)
+        records[name]["library_ms_b1024"] = library.get(1024)
+    corpora.clear()
+    torch.cuda.empty_cache()
 
     # K2 at the query tiles the wrapper picks for B = 1 .. 1,024 (l2), ip,
     # d 768 (BQ capped by shared memory), and B = 1 with 99% excluded: the
     # hybrid request, whose times are recorded as ms_b1 / plain_ms_b1
-    k2_err, by_b, hybrid = 0.0, {}, None
+    k2_err, by_b, hybrid, k2_lib = 0.0, {}, None, {}
     for b, positive, d, kept in K2_CASES:
         qf = torch.randn((b, d), generator=gen, device=dev)
         cf = torch.randn((n_rows, d), generator=gen, device=dev)
@@ -262,36 +343,48 @@ def kernel_phase(torch, bs, dev, gpu: str) -> dict:
         plain_ms = time_ms(
             torch, lambda: bs.bucket_min_scan_plain(q, qsq, c, bias, positive),
             reps=2)
+        bound_ms, bound_by = bound(
+            2 * b * d + 4 * b + 2 * n_rows * d + 4 * n + 8 * b * n // 128,
+            2 * b * n_rows * d, BF16_FLOPS_PER_S)
+        lib = None
+        if b in LIBRARY_BATCHES and positive and d == 128 and kept > 0.5:
+            lib = library_ms(torch, lambda: q @ c.t(), gpu,
+                             f"bf16 q @ c.t() B={b}")
+            k2_lib[b] = lib
         log(f"K2 positive={positive} B={b} d={d} BQ={bs.k2_query_tile(b, d)} "
             f"N={n} kept={kept}: idx agree {frac:.6f}, max |dval| {err:.6g} "
-            f"where idx agree, kernel {ms:.3f} ms, plain {plain_ms:.3f} ms",
-            gpu)
+            f"where idx agree, kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by}), share "
+            f"{bound_ms / ms:.3f}"
+            + (f", bf16 matmul {lib:.4f} ms" if lib is not None else ""), gpu)
         check(frac >= 0.99, f"K2 B={b} d={d} idx agreement {frac} < 0.99")
         check(tol_ok and inf_ok,
               f"K2 B={b} d={d} vals outside rtol 4e-5, atol 1e-2")
         k2_err = max(k2_err, err)
         if kept < 0.5:  # the hybrid request
-            hybrid = (ms, plain_ms)
+            hybrid = (ms, plain_ms, bound_ms)
         elif d == 128 and positive:  # l2 at the main path's dim
-            by_b[b] = (ms, plain_ms)
+            by_b[b] = (ms, plain_ms, bound_ms, bound_by)
         del q, c, bias
         torch.cuda.empty_cache()
     records["bucket_scan_bf16"] = {
         "max_abs_err": k2_err, "ms": by_b[KERNEL_B][0],
-        "plain_ms": by_b[KERNEL_B][1], "ms_b1": hybrid[0],
-        "plain_ms_b1": hybrid[1]}
-    log("K2 (kernel ms, plain ms) by B, l2, d 128, 5% excluded: "
-        + json.dumps(by_b), gpu)
+        "plain_ms": by_b[KERNEL_B][1], "bound_ms": by_b[KERNEL_B][2],
+        "bound_by": by_b[KERNEL_B][3], "library_ms": k2_lib.get(KERNEL_B),
+        "bq": bs.k2_query_tile(KERNEL_B, 128),
+        "ms_b1": hybrid[0], "plain_ms_b1": hybrid[1], "bound_ms_b1": hybrid[2],
+        "ms_b1024": by_b[1024][0], "plain_ms_b1024": by_b[1024][1],
+        "bound_ms_b1024": by_b[1024][2], "library_ms_b1024": k2_lib.get(1024)}
+    log("K2 (kernel ms, plain ms, bound ms, bound by) by B, l2, d 128, 5% "
+        "excluded: " + json.dumps(by_b), gpu)
 
     # K3 has no search path: its launches here are counted apart from the
     # main path's
-    b = KERNEL_B
     k3_before = bs.launch_counts()["bucket_scan_i8"]
-    for d in (128, 768):
+    for b, d in K3_CASES:
         q = torch.randint(-127, 128, (b, d), generator=gen, device=dev,
                           dtype=torch.int8)
-        c = torch.randint(-127, 128, (n_rows, d), generator=gen, device=dev,
-                          dtype=torch.int8)
+        c = int8_corpus(d)
         clamp, sentinel, pre_shift, _ = bs.i8_layout(d)
         # no +DOTMAX offset: small biases make many scores negative
         bias = torch.randint(0, clamp // 64, (n,), generator=gen, device=dev,
@@ -306,19 +399,35 @@ def kernel_phase(torch, bs, dev, gpu: str) -> dict:
                     and torch.equal(idx, pi))
         n_bad = int((idx != pi).sum()) + int((vals != pv).sum())
         negative = bool((vals < 0).any())
+        del vals, idx, pv, pi
         ms = time_ms(torch, lambda: bs.bucket_min_scan_i8(q, c, bias))
         plain_ms = time_ms(
             torch, lambda: bs.bucket_min_scan_i8_plain(q, c, bias), reps=2)
-        log(f"K3 d={d} pre_shift={pre_shift} B={b} N={n}: bit-identical="
-            f"{same} (mismatches {n_bad}), negative scores {negative}, "
-            f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms", gpu)
-        check(same, f"K3 d={d}: {n_bad} vals/idx differ from plain")
-        if d == 128:  # the shape K1's record is taken at
-            records["bucket_scan_i8"] = {"max_abs_err": 0.0, "ms": ms,
-                                         "plain_ms": plain_ms}
-        del q, c, bias, vals, idx, pv, pi
+        bound_ms, bound_by = bound(
+            b * d + n_rows * d + 4 * n + 8 * b * n // 128,
+            2 * b * n_rows * d, INT8_OPS_PER_S)
+        log(f"K3 d={d} pre_shift={pre_shift} B={b} BQ="
+            f"{bs.k1_query_tile(b, d)} N={n}: bit-identical={same} "
+            f"(mismatches {n_bad}), negative scores {negative}, kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by}), share {bound_ms / ms:.3f}", gpu)
+        check(same, f"K3 B={b} d={d}: {n_bad} vals/idx differ from plain")
+        check(negative, f"K3 B={b} d={d}: no negative score exercised")
+        if d == 128 and b == KERNEL_B:  # the shape K1's record is taken at
+            records["bucket_scan_i8"] = {
+                "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": library.get(KERNEL_B),
+                "bq": bs.k1_query_tile(b, d)}
+        elif d == 128 and b == 1024:
+            records["bucket_scan_i8"].update({
+                "ms_b1024": ms, "plain_ms_b1024": plain_ms,
+                "bound_ms_b1024": bound_ms,
+                "library_ms_b1024": library.get(1024)})
+        del q, bias
     records["bucket_scan_i8"]["check_launches"] = (
         bs.launch_counts()["bucket_scan_i8"] - k3_before)
+    corpora.clear()
     torch.cuda.empty_cache()
     return records
 

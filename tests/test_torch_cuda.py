@@ -1,8 +1,8 @@
 """The hand-written CUDA kernels against their plain versions, on the card.
 
-These tests need an NVIDIA GPU and skip without one. The file imports no
-JAX, so it also runs where JAX is not installed, without the JAX test
-harness of tests/conftest.py:
+These tests need an NVIDIA GPU and skip without one. The file imports only
+the port (no JAX and nothing of valkey_search_tpu), so it also runs where
+JAX is not installed, without the JAX test harness of tests/conftest.py:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
@@ -11,10 +11,10 @@ import numpy as np
 import pytest
 import torch
 
-from valkey_search_tpu.runtime import config
 from valkey_search_tpu_torch.indexes.flat import FlatVectorIndex
 from valkey_search_tpu_torch.ops import bucket_scan as bs
 from valkey_search_tpu_torch.ops import topk
+from valkey_search_tpu_torch.runtime import config
 from valkey_search_tpu_torch.runtime.device import set_device
 
 GROUP = bs.GROUP
@@ -42,6 +42,41 @@ def test_kernels_match_plain(dev, span, d):
     bias = torch.randint(0, clamp, (n,), generator=gen, device=dev,
                          dtype=torch.int32) + dotmax
     bias[n_rows:] = sentinel
+    before = sum(bs.launch_counts().values())
+    got = bs.bucket_min_scan_i8_packed(q, c, bias, span)
+    torch.cuda.synchronize()
+    assert sum(bs.launch_counts().values()) == before + 1
+    assert torch.equal(got, bs.bucket_min_scan_i8_packed_plain(q, c, bias, span))
+
+
+# K1 over its query tiles: ragged tiles (B = 5, 40, 130 against BQ = 8,
+# 40, 128), a k-pad (d 48: one 128-column box of which 80 columns are
+# zeros; d 144: a second box of 16 columns), span 1 (chunk_bits 7) and 8
+# (chunk_bits 10, pre_shift 3), n_rows not a multiple of 128 with arbitrary
+# biases on the padded tail (zero-vector rows score bias - 0), and B = 1
+# with 95% or more of the rows excluded, as a hybrid request gives them
+_K1_CASES = [(b, d, span, 0.95) for b in (1, 5, 40, 130)
+             for d in (48, 128, 144) for span in (1, 8)]
+_K1_CASES += [(1, 128, 8, 0.01), (1, 128, 1, 0.05), (1, 48, 8, 0.01)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,d,span,kept", _K1_CASES)
+def test_k1_kernel_matches_plain(dev, b, d, span, kept):
+    gen = torch.Generator(device=dev).manual_seed(b * 1000 + d + span)
+    n = 2 * span * GROUP
+    n_rows = n - 999
+    q = torch.randint(-127, 128, (b, d), generator=gen, device=dev,
+                      dtype=torch.int8)
+    c = torch.randint(-127, 128, (n_rows, d), generator=gen, device=dev,
+                      dtype=torch.int8)
+    dotmax, clamp, sentinel, _, _ = bs.i8_packed_layout(bs.round_up(d, 128),
+                                                        span)
+    bias = torch.randint(0, clamp, (n,), generator=gen, device=dev,
+                         dtype=torch.int32) + dotmax
+    excluded = torch.rand((n,), generator=gen, device=dev) >= kept
+    excluded[n_rows:] = False  # the tail keeps its arbitrary biases
+    bias[excluded] = sentinel
     before = sum(bs.launch_counts().values())
     got = bs.bucket_min_scan_i8_packed(q, c, bias, span)
     torch.cuda.synchronize()
@@ -148,6 +183,36 @@ def test_k3_matches_plain(dev, groups, d):
     assert torch.equal(vals.view(torch.int32), pv.view(torch.int32))
     assert torch.equal(idx, pi)
     assert bool((vals < 0).any())  # negative scores were exercised
+
+
+# K3 over the same query tiles and dims, with negative scores (no +DOTMAX
+# offset) and arbitrary biases on the padded tail
+_K3_CASES = [(b, d) for b in (1, 5, 40, 130) for d in (48, 128, 144)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,d", _K3_CASES)
+def test_k3_kernel_matches_plain_over_query_tiles(dev, b, d):
+    gen = torch.Generator(device=dev).manual_seed(b * 1000 + d)
+    n = 2 * GROUP
+    n_rows = n - 999
+    q = torch.randint(-127, 128, (b, d), generator=gen, device=dev,
+                      dtype=torch.int8)
+    c = torch.randint(-127, 128, (n_rows, d), generator=gen, device=dev,
+                      dtype=torch.int8)
+    clamp, sentinel, _, _ = bs.i8_layout(bs.round_up(d, 128))
+    bias = torch.randint(0, clamp // 64, (n,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    bias[:n_rows][torch.rand((n_rows,), generator=gen, device=dev) < 0.05] = \
+        sentinel
+    before = bs.launch_counts()["bucket_scan_i8"]
+    vals, idx = bs.bucket_min_scan_i8(q, c, bias)
+    torch.cuda.synchronize()
+    assert bs.launch_counts()["bucket_scan_i8"] == before + 1
+    pv, pi = bs.bucket_min_scan_i8_plain(q, c, bias)
+    assert torch.equal(vals.view(torch.int32), pv.view(torch.int32))
+    assert torch.equal(idx, pi)
+    assert bool((vals < 0).any())
 
 
 @pytest.mark.cuda

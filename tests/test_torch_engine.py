@@ -13,10 +13,10 @@ import sys
 import numpy as np
 import pytest
 
-from valkey_search_tpu.runtime import config
 from valkey_search_tpu.server.engine import Engine as JaxEngine
 from valkey_search_tpu_torch.runtime.device import set_device
 from valkey_search_tpu_torch.server.engine import CommandError, Engine
+from torch_port_config import saved_options, set_both
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DIM, ROWS = 32, 3000
@@ -25,9 +25,8 @@ DIM, ROWS = 32, 3000
 @pytest.fixture(autouse=True)
 def _cpu_and_config():
     set_device("cpu")
-    saved = config.get("search.corpus-dtype")
-    yield
-    config.set_config("search.corpus-dtype", saved)
+    with saved_options("search.corpus-dtype"):
+        yield
 
 
 def _create(metric):
@@ -84,7 +83,7 @@ def _same_reply(got, want):
 
 @pytest.mark.parametrize("metric", ["L2", "IP", "COSINE"])
 def test_float32_replies_match(rng, metric):
-    config.set_config("search.corpus-dtype", "float32")
+    set_both("search.corpus-dtype", "float32")
     (jeng, teng), deleted = _both(rng, metric)
     for q in rng.standard_normal((4, DIM)).astype(np.float32):
         for cmd in _searches(q):
@@ -102,7 +101,7 @@ def test_float32_replies_match(rng, metric):
 
 @pytest.mark.parametrize("metric", ["L2", "IP", "COSINE"])
 def test_bfloat16_keys_match(rng, metric):
-    config.set_config("search.corpus-dtype", "bfloat16")
+    set_both("search.corpus-dtype", "bfloat16")
     (jeng, teng), deleted = _both(rng, metric)
     hits = total = 0
     for q in rng.standard_normal((8, DIM)).astype(np.float32):
@@ -115,7 +114,7 @@ def test_bfloat16_keys_match(rng, metric):
 
 
 def test_updated_vector_found_first(rng):
-    config.set_config("search.corpus-dtype", "float32")
+    set_both("search.corpus-dtype", "float32")
     (jeng, teng), _ = _both(rng, "L2")
     probe = (np.arange(DIM, dtype=np.float32) - 10) / 7
     for e in (jeng, teng):
@@ -137,7 +136,7 @@ def _error_type(engine, *argv):
 
 
 def test_error_probes_raise_the_same_types(rng):
-    config.set_config("search.corpus-dtype", "float32")
+    set_both("search.corpus-dtype", "float32")
     engines = (JaxEngine(), Engine())
     q = rng.standard_normal(DIM).astype(np.float32).tobytes()
     short = rng.standard_normal(DIM // 2).astype(np.float32).tobytes()
@@ -180,10 +179,12 @@ def test_unported_surface_raises_typed_errors():
 _GUARD = r"""
 import sys
 
+_BLOCKED = ("jax", "jaxlib", "valkey_search_tpu")
+
 class _NoJax:
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib"):
-            raise ImportError("jax is blocked: " + name)
+        if name.split(".")[0] in _BLOCKED:
+            raise ImportError("blocked: " + name)
 
 sys.meta_path.insert(0, _NoJax())
 import numpy as np
@@ -208,10 +209,12 @@ assert reply == [2, "k2", "k0"], reply
 reply = e.execute("FT.SEARCH", "i", "@title:run=>[KNN 5 @v $q]", "PARAMS",
                   "2", "q", q, "NOCONTENT")
 assert reply == [3, "k2", "k1", "k0"], reply
+reply = e.execute("FT.SEARCH", "i", "@title:run", "NOCONTENT")
+assert reply[0] == 3 and set(reply[1:]) == {"k0", "k1", "k2"}, reply
 reply = e.execute("FT.SEARCH", "i", "@n:[1 4]", "SORTBY", "n", "DESC",
                   "NOCONTENT")
 assert reply == [4, "k4", "k3", "k2", "k1"], reply
-assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")]
+assert not [m for m in sys.modules if m.split(".")[0] in _BLOCKED]
 print("no-jax-ok")
 """
 

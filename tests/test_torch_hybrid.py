@@ -20,7 +20,6 @@ from valkey_search_tpu.indexes.flat import FlatVectorIndex as JaxFlat
 from valkey_search_tpu.ops import topk as jtopk
 from valkey_search_tpu.query import parser as jparser
 from valkey_search_tpu.query import predicate as jpred
-from valkey_search_tpu.runtime import config
 from valkey_search_tpu.server.engine import Engine as JaxEngine
 from valkey_search_tpu_torch.indexes.flat import FlatVectorIndex
 from valkey_search_tpu_torch.query import parser as tparser
@@ -28,6 +27,8 @@ from valkey_search_tpu_torch.query import predicate as tpred
 from valkey_search_tpu_torch.runtime.device import set_device
 from valkey_search_tpu_torch.schema.index_schema import schema_from_reference
 from valkey_search_tpu_torch.server.engine import Engine
+from valkey_search_tpu_torch.utils.interning import KeyInterner
+from torch_port_config import saved_options, set_both
 
 DIM, ROWS = 16, 3000
 VOCAB = ["alpha", "bravo", "charlie", "delta", "echo", "foxtrot", "golf"]
@@ -37,10 +38,8 @@ _KEYS = ("search.corpus-dtype", "search.scan-kernel")
 @pytest.fixture(autouse=True)
 def _cpu_and_config():
     set_device("cpu")
-    saved = {k: config.get(k) for k in _KEYS}
-    yield
-    for k, v in saved.items():
-        config.set_config(k, v)
+    with saved_options(*_KEYS):
+        yield
 
 
 def _both(rng, metric):
@@ -83,7 +82,7 @@ def _qualified(engine, flt):
 @pytest.mark.parametrize("dtype", ["float32", "int8"])
 @pytest.mark.parametrize("metric", ["L2", "IP", "COSINE"])
 def test_hybrid_replies_match(rng, dtype, metric):
-    config.set_config("search.corpus-dtype", dtype)
+    set_both("search.corpus-dtype", dtype)
     engines = _both(rng, metric)
     for flt in FILTERS:
         allowed = _qualified(engines[1], flt)
@@ -100,7 +99,7 @@ def test_hybrid_replies_match(rng, dtype, metric):
 
 @pytest.mark.parametrize("metric", ["L2", "IP", "COSINE"])
 def test_hybrid_bfloat16_keys_match(rng, metric):
-    config.set_config("search.corpus-dtype", "bfloat16")
+    set_both("search.corpus-dtype", "bfloat16")
     engines = _both(rng, metric)
     hits = total = 0
     for flt in FILTERS:
@@ -144,7 +143,7 @@ def _export(jschema):
 
 @pytest.mark.parametrize("dtype", ["float32", "int8"])
 def test_schema_from_reference_same_ids_and_masks(rng, dtype):
-    config.set_config("search.corpus-dtype", dtype)
+    set_both("search.corpus-dtype", dtype)
     jeng = JaxEngine()
     jeng.execute("FT.CREATE", "idx", "ON", "HASH", "PREFIX", "1", "doc:",
                  "SCHEMA", "v", "VECTOR", "FLAT", "6", "TYPE", "FLOAT32",
@@ -165,6 +164,9 @@ def test_schema_from_reference_same_ids_and_masks(rng, dtype):
     jschema = jeng.manager.get("idx")
     tschema = schema_from_reference(_export(jschema), torch.device("cpu"))
     assert dict(tschema.interner.items()) == dict(jschema.interner.items())
+    # the port's own interner, rebuilt from the reference's state
+    assert isinstance(tschema.interner, KeyInterner)
+    assert tschema.interner is not jschema.interner
     jindex, tindex = jschema.attribute("v").index, tschema.attribute("v").index
     assert tindex.count() == jindex.count()
     q = rng.standard_normal((4, DIM)).astype(np.float32)
@@ -185,8 +187,8 @@ def test_schema_from_reference_same_ids_and_masks(rng, dtype):
 def test_masked_fused_scan_matches_jax(rng, dtype):
     """At 131,072 rows with scan-kernel "pallas", a filtered search_batch
     runs the fused scan (on the CPU: K1's or K2's plain version)."""
-    config.set_config("search.corpus-dtype", dtype)
-    config.set_config("search.scan-kernel", "pallas")
+    set_both("search.corpus-dtype", dtype)
+    set_both("search.scan-kernel", "pallas")
     n, d, k = 131072, 16, 10
     jidx = JaxFlat(dim=d, metric="l2")
     jidx.bulk_load([f"k{i}" for i in range(n)],

@@ -11,10 +11,10 @@ import torch
 
 from valkey_search_tpu.indexes.flat import FlatVectorIndex as JaxFlat
 from valkey_search_tpu.ops import topk as jtopk
-from valkey_search_tpu.runtime import config
 from valkey_search_tpu_torch.indexes.flat import FlatVectorIndex
 from valkey_search_tpu_torch.indexes.vector_base import store_from_reference
 from valkey_search_tpu_torch.runtime.device import set_device
+from torch_port_config import saved_options, set_both
 
 _KEYS = ("search.corpus-dtype", "search.scan-kernel")
 
@@ -22,10 +22,8 @@ _KEYS = ("search.corpus-dtype", "search.scan-kernel")
 @pytest.fixture(autouse=True)
 def _cpu_and_config():
     set_device("cpu")
-    saved = {k: config.get(k) for k in _KEYS}
-    yield
-    for k, v in saved.items():
-        config.set_config(k, v)
+    with saved_options(*_KEYS):
+        yield
 
 
 def _jax_index(rng, n, d, metric="l2"):
@@ -48,7 +46,7 @@ def _port(jidx):
 
 
 def test_int8_mirror_bit_identical(rng):
-    config.set_config("search.corpus-dtype", "int8")
+    set_both("search.corpus-dtype", "int8")
     jidx, vecs = _jax_index(rng, 5000, 32)
     idx = _port(jidx)
     for step in range(3):
@@ -74,7 +72,7 @@ def test_int8_mirror_bit_identical(rng):
 
 
 def test_scatter_publish_keeps_old_snapshots(rng):
-    config.set_config("search.corpus-dtype", "bfloat16")
+    set_both("search.corpus-dtype", "bfloat16")
     jidx, vecs = _jax_index(rng, 3000, 16)
     idx = _port(jidx)
     old = idx.store.device_snapshot()
@@ -92,7 +90,7 @@ def test_scatter_publish_keeps_old_snapshots(rng):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
 @pytest.mark.parametrize("metric", ["l2", "ip", "cosine"])
 def test_search_batch_matches_jax(rng, dtype, metric):
-    config.set_config("search.corpus-dtype", dtype)
+    set_both("search.corpus-dtype", dtype)
     jidx, _ = _jax_index(rng, 3000, 32, metric)
     for key in ("k4", "k77", "k2999"):
         jidx.remove_record(key)
@@ -108,8 +106,8 @@ def test_search_batch_matches_jax(rng, dtype, metric):
 def test_fused_path_through_search_batch_matches_jax(rng):
     """At 131,072 rows with scan-kernel "pallas", search_batch routes to the
     fused int8 scan (on the CPU: K1's plain version)."""
-    config.set_config("search.corpus-dtype", "int8")
-    config.set_config("search.scan-kernel", "pallas")
+    set_both("search.corpus-dtype", "int8")
+    set_both("search.scan-kernel", "pallas")
     n, d, k = 131072, 16, 10
     jidx, _ = _jax_index(rng, n, d)
     for i in range(0, n, 97):

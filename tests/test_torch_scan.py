@@ -1,4 +1,4 @@
-"""The port's coarse scans K1/K2 against the JAX package's Pallas kernels.
+"""The port's coarse scans K1/K2/K3 against the JAX package's Pallas kernels.
 
 Both sides get the same numpy inputs. The JAX kernels run in interpret mode
 on the CPU (as tests/test_pallas_scan.py runs them); the port's wrappers
@@ -6,6 +6,8 @@ take their plain PyTorch versions because the tensors lie on the CPU. The
 hand-written CUDA kernels are compared with the plain versions on the card
 by tests/test_torch_cuda.py.
 """
+
+import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -105,6 +107,114 @@ def test_k1_plain_bit_identical_to_pallas(rng, span):
     # the all-SENTINEL lane decodes to an excluded score
     score = (got.numpy()[:, 0] >> bs.chunk_bits(span)) << pre_shift
     assert (score > invalid_thresh).all()
+
+
+def _pad128(x):
+    """x zero-padded to a multiple of 128 columns, as the Pallas kernels
+    take it: zero columns add nothing to an integer dot."""
+    out = np.zeros((x.shape[0], bs.round_up(x.shape[1], 128)), x.dtype)
+    out[:, :x.shape[1]] = x
+    return out
+
+
+@pytest.mark.parametrize("span", [1, 8])
+def test_k1_plain_one_query_mostly_excluded_matches_pallas(rng, span):
+    """B = 1 with 99% of the rows excluded, as a hybrid request runs K1:
+    most buckets hold no qualified row and keep a SENTINEL score."""
+    n, d = span * ps.GROUP, 128
+    n_rows = n - 300
+    q, c, bias = _i8_case(rng, 1, n, d, span, n_rows)
+    _, _, sentinel, _, invalid_thresh = ps.i8_packed_layout(d, span)
+    bias[rng.random(n) >= 0.01] = sentinel
+    want = ps.bucket_min_scan_i8_packed(
+        jnp.asarray(q), jnp.asarray(c), jnp.asarray(bias)[None], span=span,
+        block_b=1, interpret=True)
+    got = bs.bucket_min_scan_i8_packed(_t(q), _t(c[:n_rows]), _t(bias), span)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    _, _, _, pre_shift, _ = bs.i8_packed_layout(d, span)
+    score = (got.numpy() >> bs.chunk_bits(span)) << pre_shift
+    # span 1: a bucket of 128 rows keeps none ~28% of the time; span 8's
+    # 1,024-row buckets almost always keep one (lane 0 never does)
+    assert (score > invalid_thresh).mean() > (0.2 if span == 1 else 0.0)
+
+
+@pytest.mark.parametrize("span", [1, 8])
+def test_k1_plain_at_d48_matches_pallas(rng, span):
+    """d 48 (not a multiple of 128): the port's plain version at d 48
+    against the Pallas kernel on the inputs zero-padded to 128 columns; both
+    take the layout constants from d padded to 128."""
+    b, n, d = 5, span * ps.GROUP, 48
+    n_rows = n - 999
+    q, c, bias = _i8_case(rng, b, n, 128, span, n_rows)
+    q, c = q[:, :d], c[:, :d]
+    want = ps.bucket_min_scan_i8_packed(
+        jnp.asarray(_pad128(q)), jnp.asarray(_pad128(c)),
+        jnp.asarray(bias)[None], span=span, block_b=b, interpret=True)
+    got = bs.bucket_min_scan_i8_packed(_t(q), _t(c[:n_rows]), _t(bias), span)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("d", [16, 128, 768])
+def test_k1_query_tile(d):
+    """BQ is a multiple of 8 in [8, 128] and its shared memory fits; it
+    covers min(B, 128) wherever that fits, which at int8 is every d up to
+    well past 768 (the query tile at d 768 and BQ 128 is 96 KiB)."""
+    for b in range(1, 20001):
+        bq = bs.k1_query_tile(b, d)
+        assert bq % 8 == 0 and 8 <= bq <= 128
+        assert bs.k1_smem_bytes(bq, d) <= bs.K1_MAX_SMEM
+        want = min(bs.round_up(b, 8), 128)
+        if bs.k1_smem_bytes(want, d) <= bs.K1_MAX_SMEM:
+            assert bq == want >= min(b, 128)
+        else:
+            assert bq < want
+            assert bs.k1_smem_bytes(bq + 8, d) > bs.K1_MAX_SMEM
+    assert bs.k1_query_tile(1, d) == 8
+    assert bs.k1_query_tile(20000, d) == 128
+    # the kernel's layout: 1024 alignment + 4 x 16 KiB ring + d/128 boxes
+    # of BQ rows x 128 bytes + 4 x 512 bytes of bias + 9 barriers
+    assert bs.k1_smem_bytes(128, 768) == 1024 + 65536 + 6 * 16384 + 2048 + 72
+
+
+def test_k1_query_tile_bounds_d():
+    top = bs.k1_max_dim()
+    assert top % 16 == 0 and top >= 16384
+    assert bs.k1_query_tile(1, top) == 8
+    assert bs.k1_query_tile(1000, top) < 128  # a wide d shrinks the tile
+    with pytest.raises(ValueError):
+        bs.k1_query_tile(1, top + 16)
+
+
+@pytest.mark.parametrize("span", [1, 2, 4, 8, 16])
+def test_k1_layouts_keep_pre_shift_within_chunk_bits(span):
+    """The CUDA int8 scans build the key as ((bias - dot) << (chunk_bits -
+    pre_shift)) with the low chunk_bits cleared, which needs pre_shift <=
+    chunk_bits: true of K1's and K3's layouts for every d they take."""
+    for d in range(128, bs.k1_max_dim() + 128, 128):
+        assert bs.i8_packed_layout(d, span)[3] <= bs.chunk_bits(span)
+        assert bs.i8_layout(d)[2] <= 7
+
+
+@pytest.mark.parametrize("d,span", [(128, 1), (128, 8), (768, 8), (768, 1),
+                                    (4096, 4)])
+def test_k1_kernel_key_arithmetic_matches_the_shifts(rng, d, span):
+    """The kernel's epilogue (csrc/bucket_scan_i8_packed.cu Epilogue):
+    ((b * mult - dot * mult) & high) | m in uint32, mult = 2^(chunk_bits -
+    pre_shift), equals K1's (((b - dot) >> pre_shift) << chunk_bits) | m and
+    K3's (signed scores) bit for bit, over the scores these layouts give."""
+    dotmax, _, sentinel, pre_shift, _ = bs.i8_packed_layout(d, span)
+    cb = bs.chunk_bits(span)
+    for ps, lo in ((pre_shift, 0), (bs.i8_layout(d)[2], -dotmax)):
+        if span != 1 and lo < 0:
+            continue  # K3 runs at span 1 only
+        bias = rng.integers(lo + dotmax, sentinel + 1, 4000, dtype=np.int64)
+        dot = rng.integers(-dotmax, dotmax + 1, 4000, dtype=np.int64)
+        m = rng.integers(0, span * 128, 4000, dtype=np.int64)
+        want = ((((bias - dot) >> ps) << cb) | m) & 0xFFFFFFFF
+        mult = 1 << (cb - ps)
+        high = ~((1 << cb) - 1) & 0xFFFFFFFF
+        t = (bias * mult + dot * ((-mult) & 0xFFFFFFFF)) & 0xFFFFFFFF
+        np.testing.assert_array_equal((t & high) | m, want)
 
 
 @pytest.mark.parametrize("positive", [True, False])
@@ -317,6 +427,38 @@ def test_k3_plain_bit_identical_to_pallas(rng, groups, d):
     assert (gv.numpy()[:, 0] > invalid_thresh).all()  # the all-SENTINEL lane
 
 
+def test_k3_plain_one_query_mostly_excluded_matches_pallas(rng):
+    n, d = 2 * ps.GROUP, 128
+    n_rows = n - 555
+    q, c, bias = _k3_case(rng, 1, n, d, n_rows)
+    _, sentinel, _, invalid_thresh = ps.i8_layout(d)
+    bias[rng.random(n) >= 0.01] = sentinel
+    kv, ki = ps.bucket_min_scan_i8(jnp.asarray(q), jnp.asarray(c),
+                                   jnp.asarray(bias)[None], block_b=1,
+                                   interpret=True)
+    gv, gi = bs.bucket_min_scan_i8(_t(q), _t(c[:n_rows]), _t(bias))
+    np.testing.assert_array_equal(gv.numpy().view(np.int32),
+                                  np.asarray(kv).view(np.int32))
+    np.testing.assert_array_equal(gi.numpy(), np.asarray(ki))
+    assert (gv.numpy() > invalid_thresh).mean() > 0.2
+
+
+def test_k3_plain_at_d48_matches_pallas(rng):
+    b, n, d = 5, 2 * ps.GROUP, 48
+    n_rows = n - 999
+    q, c, bias = _k3_case(rng, b, n, 128, n_rows)
+    q, c = q[:, :d], c[:, :d]
+    kv, ki = ps.bucket_min_scan_i8(jnp.asarray(_pad128(q)),
+                                   jnp.asarray(_pad128(c)),
+                                   jnp.asarray(bias)[None], block_b=b,
+                                   interpret=True)
+    gv, gi = bs.bucket_min_scan_i8(_t(q), _t(c[:n_rows]), _t(bias))
+    np.testing.assert_array_equal(gv.numpy().view(np.int32),
+                                  np.asarray(kv).view(np.int32))
+    np.testing.assert_array_equal(gi.numpy(), np.asarray(ki))
+    assert (gv.numpy() < 0).any()
+
+
 def test_k3_wrapper_checks_and_counts(rng):
     q = torch.zeros((4, 128), dtype=torch.int8)
     c = torch.zeros((10, 128), dtype=torch.int8)
@@ -328,3 +470,20 @@ def test_k3_wrapper_checks_and_counts(rng):
     q, c, bias = _k3_case(rng, 2, ps.GROUP, 128, ps.GROUP)
     bs.bucket_min_scan_i8(_t(q), _t(c), _t(bias))
     assert bs.launch_counts()["bucket_scan_i8"] == 0  # CPU: plain version
+
+
+def test_build_hash_covers_the_shared_headers(tmp_path, monkeypatch):
+    """An edited csrc/*.cuh header changes every source's library name, so
+    the kernels rebuild (ops/_build.py)."""
+    from valkey_search_tpu_torch.ops import _build
+
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// v1\n")
+    monkeypatch.setattr(_build, "CSRC_DIR", str(tmp_path))
+    before = _build._digest(str(tmp_path / "k.cu"))
+    assert _build._digest(str(tmp_path / "k.cu")) == before
+    (tmp_path / "h.cuh").write_text("// v2\n")
+    assert _build._digest(str(tmp_path / "k.cu")) != before
+    # the port's real sources hash their headers too
+    monkeypatch.undo()
+    assert any(name.endswith(".cuh") for name in os.listdir(_build.CSRC_DIR))

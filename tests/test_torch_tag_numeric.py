@@ -16,12 +16,12 @@ import torch
 
 from valkey_search_tpu.query import parser as jparser
 from valkey_search_tpu.query import predicate as jpred
-from valkey_search_tpu.runtime import config
 from valkey_search_tpu.server.engine import Engine as JaxEngine
 from valkey_search_tpu_torch.query import parser as tparser
 from valkey_search_tpu_torch.query import predicate as tpred
 from valkey_search_tpu_torch.runtime.device import set_device
 from valkey_search_tpu_torch.server.engine import Engine
+from torch_port_config import saved_options, set_both
 
 TAGS = ["red", "Red", "blue", "bluegreen", "green", "ab", "abc", "Abd", "x y"]
 
@@ -29,9 +29,8 @@ TAGS = ["red", "Red", "blue", "bluegreen", "green", "ab", "abc", "Abd", "x y"]
 @pytest.fixture(autouse=True)
 def _cpu_and_config():
     set_device("cpu")
-    saved = config.get("search.corpus-dtype")
-    yield
-    config.set_config("search.corpus-dtype", saved)
+    with saved_options("search.corpus-dtype"):
+        yield
 
 
 def _run(engines, *argv):
@@ -202,7 +201,7 @@ def test_mask_capacity_repair():
     """20 docs carry a vector and a tag, 2,980 only the tag: the tag mask
     spans 3,000 doc ids, the vector store 2,048 rows. The port answers with
     the 3 nearest vector-bearing docs; the JAX package fails to broadcast."""
-    config.set_config("search.corpus-dtype", "float32")
+    set_both("search.corpus-dtype", "float32")
     rng = np.random.default_rng(5)
     vecs = rng.standard_normal((20, 4)).astype(np.float32)
     q = rng.standard_normal(4).astype(np.float32)

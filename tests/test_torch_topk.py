@@ -14,10 +14,10 @@ import torch
 from valkey_search_tpu.ops import distance as jdist
 from valkey_search_tpu.ops import pallas_scan as ps
 from valkey_search_tpu.ops import topk as jtopk
-from valkey_search_tpu.runtime import config
 from valkey_search_tpu_torch.ops import distance as tdist
 from valkey_search_tpu_torch.ops import topk as ttopk
 from valkey_search_tpu_torch.runtime.device import set_device
+from torch_port_config import saved_options, set_both
 
 
 @pytest.fixture(autouse=True)
@@ -27,9 +27,8 @@ def _cpu():
 
 @pytest.fixture()
 def scan_kernel():
-    saved = config.get("search.scan-kernel")
-    yield
-    config.set_config("search.scan-kernel", saved)
+    with saved_options("search.scan-kernel"):
+        yield
 
 
 def _t(x):
@@ -182,16 +181,16 @@ def test_ties_break_to_the_lower_index():
 
 def test_use_fused_scan_routing(scan_kernel):
     big = torch.zeros((131072, 4))
-    config.set_config("search.scan-kernel", "auto")
+    set_both("search.scan-kernel", "auto")
     assert not ttopk.use_fused_scan(131072, None, big)  # CPU corpus
-    config.set_config("search.scan-kernel", "pallas")
+    set_both("search.scan-kernel", "pallas")
     assert ttopk.use_fused_scan(131072, None, big)
     assert ttopk.use_fused_scan(131072, torch.ones(131072, dtype=torch.bool),
                                 big)
     assert not ttopk.use_fused_scan(131071, None, big)
     assert not ttopk.use_fused_scan(
         131072, torch.ones((2, 131072), dtype=torch.bool), big)
-    config.set_config("search.scan-kernel", "xla")
+    set_both("search.scan-kernel", "xla")
     assert not ttopk.use_fused_scan(131072, None, big)
 
 

@@ -7,10 +7,13 @@ obvious counterpart; the inside is PyTorch idiom: plain functions on
 tensors, an explicit ``torch.device`` carried by every vector store, and
 hand-written CUDA kernels (``csrc/``) where the reference had Pallas.
 
-This package imports ``torch`` and never ``jax``. It reuses, by import, the
-reference modules that are JAX-free (``runtime.config``,
-``runtime.metrics``, ``utils.{interning,cancel,lru,patricia}``,
-``query.{batcher,planner}``, ``schema.attribute_data_type`` and the native
-text tier ``native_lib``), so the config registry, the metrics and the query
-batcher are shared with the reference when both run in one process.
+This package imports ``torch`` and never ``jax``, and nothing of
+``valkey_search_tpu``, not even its modules that import no JAX. Where it
+needs one of those (``runtime.{config,metrics,debug}``,
+``utils.{interning,cancel,lru,patricia}``, ``query.{batcher,planner}``,
+``schema.attribute_data_type``, the native text tier's binding
+``native_lib``) it keeps its own copy at the same path, so its config
+registry, metrics and query batcher are its own even when both packages run
+in one process. The native C++ sources under ``native/`` are
+repository-level and built by ``native/build.py`` for either package.
 """

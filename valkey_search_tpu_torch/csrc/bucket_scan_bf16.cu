@@ -43,12 +43,14 @@
 // result does not depend on block order), which a second pass decodes in
 // place into vals and idx.
 
-#include <cuda.h>
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper_ptx.cuh"
+
 namespace {
+
+using namespace hopper;
 
 constexpr int kBucket = 128;          // lanes = survivor columns per group
 constexpr int kChunks = 128;          // chunks of 128 rows per group
@@ -57,9 +59,6 @@ constexpr int kBoxCols = 64;          // bf16 columns per box: 128 bytes
 constexpr int kBoxBytes = kBucket * kBoxCols * 2;
 constexpr int kStages = 4;            // corpus boxes in flight per block
 constexpr int kThreads = 384;         // 2 consumer warpgroups + producer
-constexpr int kMinGrid = 264;         // blocks: two per SM of 132
-constexpr int kMaxSmem = 232448;      // per-block shared memory on sm_90
-constexpr long long kWaitCycles = 1LL << 32;  // ~2 s: trap, never hang
 
 // Shared memory of one block, in this order: the corpus ring, the query
 // tile (d/64 boxes of BQ rows), the ring's biases, the query norms, the
@@ -68,93 +67,6 @@ constexpr long long kWaitCycles = 1LL << 32;  // ~2 s: trap, never hang
 __host__ __device__ constexpr int smem_bytes(int bq, int kb) {
   return 1024 + kStages * kBoxBytes + kb * bq * 128 +
          kStages * kBucket * 4 + 128 * 4 + (2 * kStages + 1) * 8;
-}
-
-__global__ void fill_int32_max(int32_t* __restrict__ p, long long n) {
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
-       i += (long long)gridDim.x * blockDim.x) {
-    p[i] = INT32_MAX;
-  }
-}
-
-// --- PTX: mbarriers, TMA, wgmma --------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(bar) : "memory");
-}
-
-// Wait until the phase of parity `parity` has completed. A barrier that
-// never completes (a fault in this file) traps after ~2 s instead of
-// hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  long long start = 0;
-  while (true) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    if (done) return;
-    if (start == 0) {
-      start = clock64();
-    } else if (clock64() - start > kWaitCycles) {
-      asm volatile("trap;\n");
-    }
-  }
-}
-
-// one box of a 2-D tensor map (col, row) into shared memory
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         int col, int row, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row),
-         "r"(bar)
-      : "memory");
-}
-
-// contiguous bytes (a multiple of 16, 16-byte aligned) into shared memory
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
-                                          int bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n"
-      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
-}
-
-// wgmma descriptor of a K-major tile of 128-byte rows, 128-byte swizzle,
-// 8-row atoms 1024 bytes apart; the tile starts 1024-byte aligned and a
-// k-step of 16 bf16 adds 32 bytes to the start address
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
 
 // D[64 x N] (+)= A[64 x 16] * B[16 x N], f32 += bf16 * bf16, A and B
@@ -324,7 +236,7 @@ scan_bf16(const __grid_constant__ CUtensorMap qmap,
       mbar_init(empty(s), 256);  // every consumer thread releases
     }
     mbar_init(qbar, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_fence_init();
   }
   __syncthreads();
 
@@ -453,50 +365,11 @@ __global__ void decode(float* __restrict__ vals, int32_t* __restrict__ idx,
 
 // --- host side --------------------------------------------------------------
 
-using EncodeTiled = CUresult (*)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-// libcuda's cuTensorMapEncodeTiled, found through the CUDA runtime so that
-// the library needs no link against libcuda
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = []() -> EncodeTiled {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (e != cudaSuccess || found != cudaDriverEntryPointSuccess) {
-      return nullptr;
-    }
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
-// [rows, d] bf16, row-major, in boxes of box_rows x 64 with 128-byte
-// swizzle; reads past the edges fill zeros
-cudaError_t tensor_map(CUtensorMap* map, const void* ptr, long long rows,
-                       int d, int box_rows) {
-  EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[2] = {(cuuint64_t)d, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)d * 2};
-  const cuuint32_t box[2] = {(cuuint32_t)kBoxCols, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                      const_cast<void*>(ptr), dims, strides, box, elem,
-                      CU_TENSOR_MAP_INTERLEAVE_NONE,
-                      CU_TENSOR_MAP_SWIZZLE_128B,
-                      CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+// [rows, d] bf16 in boxes of box_rows x 64
+cudaError_t bf16_map(CUtensorMap* map, const void* ptr, long long rows,
+                     int d, int box_rows) {
+  return hopper::tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, ptr,
+                            rows, d, kBoxCols, box_rows);
 }
 
 template <int BQ>
@@ -524,8 +397,7 @@ cudaError_t launch_scan(const CUtensorMap& qmap, const CUtensorMap& cmap,
   }
   const long long groups = n / kGroup;
   const int qtiles = (b + BQ - 1) / BQ;
-  int slices = 1;  // chunk slices per group: fill the card at small B
-  while (slices < kChunks && groups * qtiles * slices < kMinGrid) slices *= 2;
+  const int slices = slices_for(groups, qtiles, kChunks);
   const long long blocks = groups * qtiles * slices;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   scan_bf16<BQ><<<(unsigned)blocks, kThreads, smem, stream>>>(
@@ -569,11 +441,11 @@ extern "C" int bucket_scan_bf16(const void* q, const void* qsq, const void* c,
   const long long n_out = n / kBucket;
   const long long total = (long long)b * n_out;
   CUtensorMap qmap, cmap;
-  cudaError_t e = tensor_map(&qmap, q, b, d, bq);
+  cudaError_t e = bf16_map(&qmap, q, b, d, bq);
   // an empty corpus is all tail: its map is never read, any valid one does
   if (e == cudaSuccess) {
-    e = n_rows > 0 ? tensor_map(&cmap, c, n_rows, d, kBucket)
-                   : tensor_map(&cmap, q, b, d, kBucket);
+    e = n_rows > 0 ? bf16_map(&cmap, c, n_rows, d, kBucket)
+                   : bf16_map(&cmap, q, b, d, kBucket);
   }
   if (e != cudaSuccess) return (int)e;
   fill_int32_max<<<1024, 256, 0, s>>>(ip, total);

@@ -21,8 +21,8 @@ from typing import Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-from valkey_search_tpu.runtime import config
-from valkey_search_tpu.runtime.metrics import STATS
+from valkey_search_tpu_torch.runtime import config
+from valkey_search_tpu_torch.runtime.metrics import STATS
 from valkey_search_tpu_torch.indexes.vector_base import (
     VectorIndexBase,
     store_from_reference,

@@ -29,8 +29,8 @@ from typing import Dict, Optional, Set
 import numpy as np
 import torch
 
-from valkey_search_tpu.runtime import config
-from valkey_search_tpu.utils.interning import KeyInterner
+from valkey_search_tpu_torch.runtime import config
+from valkey_search_tpu_torch.utils.interning import KeyInterner
 from valkey_search_tpu_torch.indexes.base import (
     EntriesFetcher,
     IndexBase,

@@ -22,9 +22,9 @@ from typing import Dict, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from valkey_search_tpu.runtime import config
-from valkey_search_tpu.runtime.metrics import STATS
-from valkey_search_tpu.utils.interning import KeyInterner
+from valkey_search_tpu_torch.runtime import config
+from valkey_search_tpu_torch.runtime.metrics import STATS
+from valkey_search_tpu_torch.utils.interning import KeyInterner
 from valkey_search_tpu_torch.indexes.base import IndexBase, RecordResult
 from valkey_search_tpu_torch.runtime.device import get_device
 

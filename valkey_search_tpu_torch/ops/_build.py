@@ -4,8 +4,9 @@ Each source is compiled by ``nvcc`` for ``sm_90a`` into its own shared
 library with a plain C interface and loaded with ``ctypes`` — no PyTorch
 headers, so a build takes seconds. Builds happen at first use, from the
 repository's sources only, into ``runtime.device.KERNEL_BUILD_DIR``; the
-library name carries a hash of the source and flags, so an edited source
-rebuilds and an unchanged one is reused. A failed build raises with
+library name carries a hash of the source, the shared ``csrc/*.cuh``
+headers and the flags, so an edited source or header rebuilds and an
+unchanged one is reused. A failed build raises with
 nvcc's stderr. Each source has its own lock, so different sources build
 at once (one nvcc each) and one source builds once.
 """
@@ -54,6 +55,18 @@ def _nvcc() -> str:
     raise KernelBuildError("nvcc not found (PATH, $CUDA_HOME/bin)")
 
 
+def _digest(src: str) -> str:
+    """Hash of the source, every ``csrc/*.cuh`` header it may include, and
+    the flags: an edited header rebuilds every source."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(name for name in os.listdir(CSRC_DIR)
+                     if name.endswith(".cuh"))
+    for path in [src] + [os.path.join(CSRC_DIR, name) for name in headers]:
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + b"\0" + f.read())
+    return h.hexdigest()[:16]
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library built from ``csrc/<name>.cu`` (built if needed)."""
     with _locks[name]:
@@ -61,10 +74,7 @@ def load(name: str) -> ctypes.CDLL:
         if lib is not None:
             return lib
         src = os.path.join(CSRC_DIR, f"{name}.cu")
-        with open(src, "rb") as f:
-            digest = hashlib.sha256(
-                f.read() + " ".join(NVCC_FLAGS).encode()
-            ).hexdigest()[:16]
+        digest = _digest(src)
         os.makedirs(KERNEL_BUILD_DIR, exist_ok=True)
         out = os.path.join(KERNEL_BUILD_DIR, f"lib{name}-{digest}.so")
         if os.path.exists(out):

@@ -189,6 +189,44 @@ def _flip(bits: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+# The CUDA kernel's shared memory (csrc/bucket_scan_i8_packed.cu
+# smem_bytes), shared by K1 and K3: a ring of K1_STAGES corpus boxes of 128
+# rows x 128 int8, the resident query tile (d / 128 boxes of BQ rows), the
+# ring's biases, the barriers, and 1024 bytes to align the swizzled tiles.
+K1_STAGES = 4
+K1_BOX_COLS = 128
+K1_MAX_SMEM = 232448  # per-block shared memory on sm_90
+K1_MAX_TILE = 128
+
+
+def k1_smem_bytes(bq: int, d: int) -> int:
+    kb = -(-d // K1_BOX_COLS)
+    return (1024 + K1_STAGES * BUCKET * K1_BOX_COLS + kb * bq * 128
+            + K1_STAGES * BUCKET * 4 + (2 * K1_STAGES + 1) * 8)
+
+
+def k1_query_tile(b: int, d: int) -> int:
+    """K1's and K3's query tile BQ (the N of their wgmma) for B queries of
+    dim d: the multiple of 8 that covers min(B, 128), shrunk by 8 until the
+    resident tile and the corpus ring fit in shared memory (d 768 still
+    takes 128). Raises past the largest d that fits at BQ = 8."""
+    bq = min(round_up(max(b, 1), 8), K1_MAX_TILE)
+    while bq > 8 and k1_smem_bytes(bq, d) > K1_MAX_SMEM:
+        bq -= 8
+    if k1_smem_bytes(bq, d) > K1_MAX_SMEM:
+        raise ValueError(f"the CUDA int8 scans take d up to "
+                         f"{k1_max_dim()}, not {d}")
+    return bq
+
+
+def k1_max_dim() -> int:
+    """The largest d (a multiple of 16) whose 8-query tile fits."""
+    d = 16
+    while k1_smem_bytes(8, d + 16) <= K1_MAX_SMEM:
+        d += 16
+    return d
+
+
 def bucket_min_scan_i8_packed_plain(
     queries: torch.Tensor, corpus: torch.Tensor, bias: torch.Tensor, span: int
 ) -> torch.Tensor:
@@ -228,6 +266,8 @@ def bucket_min_scan_i8_packed(
       chunk = key & (span * 128 - 1); score = (key >> chunk_bits) << pre_shift
       row   = (c // 128) * span * GROUP + chunk * BUCKET + c % 128
     The layout constants come from d padded to 128, as in the JAX package.
+    The CUDA kernel takes d % 16 == 0 up to ``k1_max_dim()`` and tiles the
+    queries by ``k1_query_tile``.
     """
     _check_scan_args(queries, corpus, bias, torch.int8, torch.int32,
                      span * GROUP, align=16)
@@ -243,7 +283,8 @@ def bucket_min_scan_i8_packed(
         rc = lib.bucket_scan_i8_packed(
             queries.data_ptr(), corpus.data_ptr(), bias.data_ptr(),
             out.data_ptr(), b, d, corpus.shape[0], n, span, pre_shift,
-            chunk_bits(span), torch.cuda.current_stream().cuda_stream,
+            chunk_bits(span), k1_query_tile(b, d),
+            torch.cuda.current_stream().cuda_stream,
         )
     _raise_on(lib, rc, "bucket_scan_i8_packed")
     _count_launch("bucket_scan_i8_packed[pre_shift=0]" if pre_shift == 0
@@ -457,7 +498,8 @@ def bucket_min_scan_i8(
     (no offset; SENTINEL = excluded; n % GROUP == 0, n_rows <= n) →
     (vals [B, n/128] f32 integer-domain scores, de-pre-shifted; idx
     [B, n/128] int32 absolute rows). The layout constants come from d
-    padded to 128, as in the JAX package."""
+    padded to 128, as in the JAX package; the CUDA kernel is K1's
+    (``k1_query_tile``, ``k1_max_dim``)."""
     _check_scan_args(queries, corpus, bias, torch.int8, torch.int32, GROUP,
                      align=16)
     if queries.device.type == "cpu":
@@ -474,7 +516,8 @@ def bucket_min_scan_i8(
         rc = lib.bucket_scan_i8(
             queries.data_ptr(), corpus.data_ptr(), bias.data_ptr(),
             vals.data_ptr(), idx.data_ptr(), b, d, corpus.shape[0], n,
-            pre_shift, torch.cuda.current_stream().cuda_stream,
+            pre_shift, k1_query_tile(b, d),
+            torch.cuda.current_stream().cuda_stream,
         )
     _raise_on(lib, rc, "bucket_scan_i8_packed", "bucket_scan_i8")
     _count_launch("bucket_scan_i8")
@@ -527,7 +570,8 @@ _P = ctypes.c_void_p
 _SIGNATURES = {
     "bucket_scan_i8_packed": [
         _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, _P,
     ],
     "bucket_scan_bf16": [
         _P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
@@ -535,7 +579,7 @@ _SIGNATURES = {
     ],
     "bucket_scan_i8": [
         _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-        ctypes.c_longlong, ctypes.c_int, _P,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P,
     ],
 }
 

@@ -19,7 +19,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from valkey_search_tpu.runtime import config
+from valkey_search_tpu_torch.runtime import config
 from valkey_search_tpu_torch.ops import bucket_scan as bs
 from valkey_search_tpu_torch.ops import distance as dist_ops
 

@@ -1,0 +1,155 @@
+"""Query batcher: concurrent KNN searches coalesce into one kernel launch.
+
+Reference P1 (SURVEY.md §2.5): every FT.SEARCH runs on a reader-pool
+thread (valkey_search.cc:1161-1164, vmsdk/src/thread_pool.h) and scales
+with cores. The TPU-native equivalent is *batching*: one chip runs one
+program at a time, so concurrent queries against the same index are
+stacked on the host and executed as a single `search_batch` device call —
+per-launch overhead and the corpus stream amortize across the whole batch
+(the same reason bench.py batches 1024 queries).
+
+Dispatcher-pool design (r5): submitters only ENQUEUE — a small pool of
+per-signature dispatcher threads drains the backlog into max-batch
+launches. The original leader-on-submitter-thread scheme collapsed under
+open-loop load: every submitter thread became the leader of a near-empty
+batch and paid a full device round trip for it (measured 140 qps achieved
+at 50k offered, r5 run 1). With dispatchers, batch size grows with the
+backlog instead of shrinking with submitter concurrency, and up to
+`search.query-dispatch-threads` workers keep multiple launches in flight
+so host↔device round trips overlap (the reader-pool analog: reference
+reader threads overlap their hnswlib walks the same way).
+`search.query-batch-window-us` still bounds how long a lone query waits
+for followers before launching.
+
+The port's own copy of valkey_search_tpu/query/batcher.py: the same
+names, defaults and behaviour, with its imports pointing into
+valkey_search_tpu_torch.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from collections import deque
+from concurrent.futures import Future
+from typing import Deque, Dict, Optional
+
+import numpy as np
+
+from valkey_search_tpu_torch.runtime import config
+from valkey_search_tpu_torch.runtime.metrics import STATS
+
+
+class _PendingQuery:
+    __slots__ = ("vector", "future")
+
+    def __init__(self, vector: np.ndarray):
+        self.vector = vector
+        self.future: Future = Future()
+
+
+class VectorQueryBatcher:
+    """Batches (index, k, ef) compatible single-vector searches."""
+
+    # a dispatcher with an empty queue lingers this long before exiting,
+    # so steady traffic reuses warm threads instead of respawning
+    IDLE_S = 2.0
+
+    def __init__(self):
+        self._cond = threading.Condition()
+        self._queues: Dict[tuple, Deque[_PendingQuery]] = {}
+        self._workers: Dict[tuple, int] = {}
+
+    def submit(
+        self,
+        index,
+        vector: np.ndarray,
+        k: int,
+        ef: Optional[int],
+    ) -> Future:
+        """Queue one query; returns a Future of (dists [k], ids [k])."""
+        sig = (id(index), k, ef)
+        q = _PendingQuery(np.asarray(vector, np.float32).reshape(-1))
+        max_batch = int(config.get("search.query-max-batch"))
+        cap = int(config.get("search.query-dispatch-threads"))
+        with self._cond:
+            queue = self._queues.setdefault(sig, deque())
+            queue.append(q)
+            n = self._workers.get(sig, 0)
+            # first worker on demand; extra workers only while the backlog
+            # already exceeds n full launches (they overlap round trips)
+            if n == 0 or (n < cap and len(queue) > max_batch * n):
+                self._workers[sig] = n + 1
+                threading.Thread(
+                    target=self._worker,
+                    args=(sig, index, k, ef),
+                    name=f"vstpu-query-dispatch-{n}",
+                    daemon=True,
+                ).start()
+            else:
+                self._cond.notify()
+        return q.future
+
+    def _worker(self, sig: tuple, index, k: int, ef: Optional[int]) -> None:
+        while True:
+            with self._cond:
+                deadline = time.monotonic() + self.IDLE_S
+                while not self._queues.get(sig):
+                    remaining = deadline - time.monotonic()
+                    if remaining <= 0:
+                        n = self._workers[sig] - 1
+                        if n:
+                            self._workers[sig] = n
+                        else:
+                            del self._workers[sig]
+                            self._queues.pop(sig, None)
+                        return
+                    self._cond.wait(remaining)
+            window_s = float(config.get("search.query-batch-window-us")) / 1e6
+            if window_s > 0:
+                time.sleep(window_s)  # let followers pile up behind us
+            max_batch = int(config.get("search.query-max-batch"))
+            with self._cond:
+                queue = self._queues.get(sig)
+                chunk = []
+                while queue and len(chunk) < max_batch:
+                    chunk.append(queue.popleft())
+            if not chunk:
+                continue
+            try:
+                queries = np.stack([p.vector for p in chunk])
+                # pow2 shape bucketing: XLA compiles one program per input
+                # shape, so arbitrary coalesce sizes each pay a fresh
+                # trace+compile mid-serving (measured: 16s p99 spikes under
+                # open-loop load, bench r5). Padding to the next power of
+                # two caps the shape set at log2(max-batch) programs; the
+                # duplicated tail rows are dropped on reply.
+                n_real = queries.shape[0]
+                if n_real & (n_real - 1):
+                    padded = 1 << (n_real - 1).bit_length()
+                    queries = np.concatenate([
+                        queries,
+                        np.broadcast_to(
+                            queries[-1], (padded - n_real, queries.shape[1])
+                        ),
+                    ])
+                if ef is not None:
+                    d, ids = index.search_batch(queries, k, ef=ef)
+                else:
+                    d, ids = index.search_batch(queries, k)
+                STATS.incr("batched_queries", len(chunk))
+                if len(chunk) > 1:
+                    STATS.incr("query_batches_coalesced")
+                for row, p in enumerate(chunk):
+                    p.future.set_result((d[row], ids[row]))
+            except Exception as exc:  # propagate to every waiter
+                for p in chunk:
+                    if not p.future.done():
+                        p.future.set_exception(exc)
+
+
+_GLOBAL = VectorQueryBatcher()
+
+
+def submit(index, vector, k: int, ef: Optional[int] = None) -> Future:
+    return _GLOBAL.submit(index, vector, k, ef)

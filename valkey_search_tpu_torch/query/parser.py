@@ -27,7 +27,7 @@ import math
 from typing import Dict, List, Optional, Tuple
 
 from valkey_search_tpu_torch.query import predicate as P
-from valkey_search_tpu.runtime import config
+from valkey_search_tpu_torch.runtime import config
 
 
 class QuerySyntaxError(ValueError):

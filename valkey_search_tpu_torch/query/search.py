@@ -2,8 +2,9 @@
 
 Counterpart of valkey_search_tpu/query/search.py (reference
 src/query/search.{h,cc}) for FLAT vector attributes. An unfiltered KNN goes
-through the JAX-free query batcher of the JAX package, so concurrent
-searches coalesce into one ``search_batch`` launch; a filtered KNN is one
+through the query batcher (the port's copy of the JAX package's), so
+concurrent searches coalesce into one ``search_batch`` launch; a filtered
+KNN is one
 ``search_batch`` launch of its own over the predicate's device mask (TAG,
 NUMERIC and TEXT leaves under And/Or/Negate), which the coarse scans fold
 into their bias; a query without KNN resolves its predicate on the host.
@@ -18,10 +19,10 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from valkey_search_tpu.query import batcher, planner
-from valkey_search_tpu.runtime import config
-from valkey_search_tpu.runtime.metrics import STATS
-from valkey_search_tpu.utils import cancel
+from valkey_search_tpu_torch.query import batcher, planner
+from valkey_search_tpu_torch.runtime import config
+from valkey_search_tpu_torch.runtime.metrics import STATS
+from valkey_search_tpu_torch.utils import cancel
 from valkey_search_tpu_torch.indexes.flat import FlatVectorIndex
 from valkey_search_tpu_torch.query import parser as qparser
 from valkey_search_tpu_torch.query import predicate as P

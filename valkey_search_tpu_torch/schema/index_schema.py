@@ -20,10 +20,10 @@ from typing import Dict, List, Mapping, Optional, Sequence
 import numpy as np
 import torch
 
-from valkey_search_tpu.runtime import config
-from valkey_search_tpu.runtime.metrics import STATS
-from valkey_search_tpu.schema.attribute_data_type import data_type_for
-from valkey_search_tpu.utils.interning import KeyInterner
+from valkey_search_tpu_torch.runtime import config
+from valkey_search_tpu_torch.runtime.metrics import STATS
+from valkey_search_tpu_torch.schema.attribute_data_type import data_type_for
+from valkey_search_tpu_torch.utils.interning import KeyInterner
 from valkey_search_tpu_torch.indexes.base import IndexBase, RecordResult
 from valkey_search_tpu_torch.indexes.flat import FlatVectorIndex
 from valkey_search_tpu_torch.indexes.numeric import NumericIndex

@@ -11,9 +11,9 @@ from __future__ import annotations
 import threading
 from typing import Dict, Iterable, List, Tuple
 
-from valkey_search_tpu.runtime import config
-from valkey_search_tpu.runtime.metrics import STATS
-from valkey_search_tpu.utils.patricia import PatriciaTree
+from valkey_search_tpu_torch.runtime import config
+from valkey_search_tpu_torch.runtime.metrics import STATS
+from valkey_search_tpu_torch.utils.patricia import PatriciaTree
 from valkey_search_tpu_torch.schema.index_schema import IndexSchema, SchemaError
 
 __all__ = ["SchemaError", "SchemaManager"]

@@ -22,8 +22,8 @@ from __future__ import annotations
 import threading
 from typing import Dict, List, Union
 
-from valkey_search_tpu.runtime import config
-from valkey_search_tpu.runtime.metrics import STATS
+from valkey_search_tpu_torch.runtime import config
+from valkey_search_tpu_torch.runtime.metrics import STATS
 from valkey_search_tpu_torch.schema.schema_manager import SchemaManager
 from valkey_search_tpu_torch.server import ft_create as ft_create_mod
 from valkey_search_tpu_torch.server import ft_search as ft_search_mod

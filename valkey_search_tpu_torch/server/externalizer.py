@@ -19,8 +19,8 @@ from typing import Optional
 
 import numpy as np
 
-from valkey_search_tpu.runtime.metrics import STATS
-from valkey_search_tpu.utils.lru import LRU
+from valkey_search_tpu_torch.runtime.metrics import STATS
+from valkey_search_tpu_torch.utils.lru import LRU
 
 _LRU_CAPACITY = 100  # reference kLRUCapacity (vector_externalizer.h:31)
 _cache: LRU = LRU(_LRU_CAPACITY)

@@ -194,7 +194,7 @@ def parse_ft_create(args: List[str]) -> Tuple[IndexSchema, bool]:
             metric = kv["DISTANCE_METRIC"].lower()
             if metric not in ("l2", "ip", "cosine"):
                 raise FTCreateError(f"bad DISTANCE_METRIC {kv['DISTANCE_METRIC']}")
-            from valkey_search_tpu.runtime import config as _cfg
+            from valkey_search_tpu_torch.runtime import config as _cfg
 
             # reference limit configs (ft_create_parser.cc:62-93)
             max_dim = int(_cfg.get("search.max-vector-dimensions"))

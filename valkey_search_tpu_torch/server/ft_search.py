@@ -12,7 +12,7 @@ from __future__ import annotations
 
 from typing import Dict, List, Optional, Tuple, Union
 
-from valkey_search_tpu.runtime import config
+from valkey_search_tpu_torch.runtime import config
 from valkey_search_tpu_torch.query import predicate as P
 from valkey_search_tpu_torch.query.search import (
     Neighbor,

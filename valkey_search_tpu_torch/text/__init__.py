@@ -1,9 +1,8 @@
 """Full-text search of the port: host structures, device masks.
 
 Counterpart of valkey_search_tpu/text/. The lexer, stemmer, radix tree and
-postings are host code, copied with their imports re-pointed (the JAX
-package's ``text/__init__`` imports its JAX-bound indexes, so they cannot be
-imported from there); each text matcher resolves to a bool tensor over the
+postings are host code, copied with their imports re-pointed (the port
+imports nothing of the JAX package); each text matcher resolves to a bool tensor over the
 doc-id space, which the vector scans take as a pre-filter like tag and
 numeric masks.
 """

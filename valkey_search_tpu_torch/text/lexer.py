@@ -1,7 +1,7 @@
 """Stateless text lexer: punctuation split -> case fold -> stop words -> stem.
 
 Copied from valkey_search_tpu/text/lexer.py with its imports re-pointed;
-the native tier (``valkey_search_tpu.native_lib``, JAX-free) is shared.
+the native tier is bound by the port's own ``native_lib``.
 
 Reference: src/indexes/text/lexer.{h,cc} — a 256-entry punctuation bitmap
 (whitespace + control chars always split; configurable punctuation set,
@@ -113,7 +113,7 @@ class Lexer:
             if not (self._punctuation.isascii()
                     and all(w.isascii() for w in self._stop_words)):
                 return None
-            from valkey_search_tpu import native_lib
+            from valkey_search_tpu_torch import native_lib
 
             self._native = native_lib.NativeLexer(
                 self._punctuation, self._stop_words, self.min_stem_size

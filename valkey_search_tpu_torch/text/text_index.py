@@ -2,7 +2,7 @@
 
 Copied from valkey_search_tpu/text/text_index.py with its imports re-pointed;
 ``TextEngine.device_mask`` returns a bool tensor on the schema's device.
-The native tier (``valkey_search_tpu.native_lib``, JAX-free) is shared.
+The native tier is bound by the port's own ``native_lib``.
 
 Reference: src/indexes/text/text_index.{h,cc} — TextIndexSchema owns a
 prefix rax (+ optional suffix rax) mapping word -> Postings, a stem tree
@@ -26,7 +26,7 @@ from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Set, Tupl
 import numpy as np
 import torch
 
-from valkey_search_tpu.runtime import config
+from valkey_search_tpu_torch.runtime import config
 from valkey_search_tpu_torch.indexes.base import (
     EntriesFetcher,
     IndexBase,
@@ -153,7 +153,7 @@ class TextEngine:
             native = self.lexer._native_lexer()
             if native is None:
                 return None
-            from valkey_search_tpu.native_lib import NativeTextIndex
+            from valkey_search_tpu_torch.native_lib import NativeTextIndex
 
             return NativeTextIndex(native)
         except Exception:
