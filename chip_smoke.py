@@ -40,7 +40,19 @@ Phases (each failure exits non-zero; there is no CPU path):
               visibility (the tag mask cache included), latency and
               search_batch QPS; and where a hybrid request's time goes
               (profile_hybrid: 1 against 16 threads, the GIL switch
-              interval, torch.profiler's device time per request).
+              interval, torch.profiler's device time per request);
+5. hnsw     - (a) FT.CREATE ... VECTOR HNSW (M 16, EF_CONSTRUCTION 200) +
+              cat TAG and 100,000 HSETs (native inserts): FT.SEARCH KNN 10
+              EF_RUNTIME 100 from 16 threads on the scan route (pow2
+              capacity 131,072: K1 at pre_shift 0, and K2), hybrid, DEL and
+              update; then search.hnsw-scan-threshold 0: the AoS walk, the
+              filtered SoA walk (inline) and the pre-filtered exact scan,
+              each checked by its counters. (b) HnswVectorIndex.bulk_load of
+              1,000,000 rows under build-mode device (candidate scan, prune,
+              native bulk_build, bridging and publish timed); search_batch
+              at B = 1,024 on the scan route (K1 at pre_shift > 0, K2) and
+              the walk at ef 10, 50 and 100 beside the native walk over the
+              same graph; the walk's device share under torch.profiler.
 
 The next-to-last line is the card's name and power limit as nvidia-smi gives
 them; the line before it the kernels' JSON record; the last line the result.
@@ -90,6 +102,18 @@ INT8_OPS_PER_S = 1979e12
 BF16_FLOPS_PER_S = 989e12
 # batches at which one library call times the scans' product alone
 LIBRARY_BATCHES = (256, 1024)
+# the HNSW phase: the engine's index (pow2 capacity 131,072), the full-width
+# index, the batch and ef values of its searches, the native walk's queries
+N_HNSW = 100_000
+N_HNSW_BIG = 1_000_000
+HNSW_B = 1024
+HNSW_EF = 100
+HNSW_EFS = (10, 50, 100)
+N_NATIVE = 200
+# iterations between the walk's reads of its done flags, timed in turns
+CHECK_EVERY_CASES = (1, 2, 4, 8, 16)
+# the engine's walk routes are reported; this floor only catches breakage
+HNSW_WALK_FLOOR = 0.9
 
 
 class SmokeFailure(RuntimeError):
@@ -452,11 +476,13 @@ def ingest(engine, prefix: str, rows: np.ndarray, fields, gpu: str) -> None:
         f"({dt / len(rows) * 1e6:.1f} us/row)", gpu)
 
 
-def knn(flt: str, k: int = K) -> str:
-    return f"{flt}=>[KNN {k} @v $q]"
+def knn(flt: str, k: int = K, ef: int = 0) -> str:
+    runtime = f" EF_RUNTIME {ef}" if ef else ""
+    return f"{flt}=>[KNN {k} @v $q{runtime}]"
 
 
-def search_all(engine, index: str, queries: np.ndarray, flt: str = "*"):
+def search_all(engine, index: str, queries: np.ndarray, flt: str = "*",
+               ef: int = 0):
     """FT.SEARCH every query from THREADS threads; returns (the keys of
     each reply, per-request latencies in s)."""
     n = len(queries)
@@ -469,7 +495,7 @@ def search_all(engine, index: str, queries: np.ndarray, flt: str = "*"):
             for i in range(tid, n, THREADS):
                 t0 = time.perf_counter()
                 reply = engine.execute(
-                    "FT.SEARCH", index, knn(flt), "PARAMS", "2", "q",
+                    "FT.SEARCH", index, knn(flt, ef=ef), "PARAMS", "2", "q",
                     queries[i].tobytes(), "NOCONTENT", "LIMIT", "0", str(K),
                 )
                 lat[i] = time.perf_counter() - t0
@@ -498,28 +524,28 @@ def key_ids(keys, prefix: str) -> np.ndarray:
 
 def run_searches(torch, engine, bs, index, prefix, queries, gt, dtype,
                  expect, gpu: str, stats: dict, flt: str = "*",
-                 allowed=None):
-    """FT.SEARCH ``queries`` under ``flt`` from THREADS threads with the
-    launch counts set to 0 just before; checks recall against ``gt``, that
-    every kernel in ``expect`` launched, and that no key lies outside
-    ``allowed`` (bool [n] of the rows the filter qualifies)."""
+                 allowed=None, ef: int = 0, floor: float = RECALL_FLOOR):
+    """FT.SEARCH ``queries`` under ``flt`` (with EF_RUNTIME ``ef`` when
+    set) from THREADS threads with the launch counts set to 0 just before;
+    checks recall against ``gt`` (at least ``floor``), that every kernel in
+    ``expect`` launched, and that no key lies outside ``allowed`` (bool [n]
+    of the rows the filter qualifies)."""
     engine.config_set("search.corpus-dtype", dtype)
     # publish the mirror for this dtype before counting (not timed)
-    engine.execute("FT.SEARCH", index, knn(flt), "PARAMS", "2",
+    engine.execute("FT.SEARCH", index, knn(flt, ef=ef), "PARAMS", "2",
                    "q", queries[0].tobytes(), "NOCONTENT")
     bs.reset_launches()
-    keys, lat = search_all(engine, index, queries, flt)
+    keys, lat = search_all(engine, index, queries, flt, ef)
     counts = bs.launch_counts()
     ids = key_ids(keys, prefix)
     r = recall(ids[:len(gt)], gt)
     outside = 0 if allowed is None else int((~allowed[ids[ids >= 0]]).sum())
     p50, p99 = np.percentile(lat, 50) * 1e3, np.percentile(lat, 99) * 1e3
-    log(f"FT.SEARCH {index} {knn(flt)!r} corpus-dtype={dtype}: "
+    log(f"FT.SEARCH {index} {knn(flt, ef=ef)!r} corpus-dtype={dtype}: "
         f"{len(queries)} queries from {THREADS} threads, recall@{K} "
         f"{r:.4f} on {len(gt)}, {outside} keys outside the filter, "
         f"p50 {p50:.3f} ms, p99 {p99:.3f} ms, launches {counts}", gpu)
-    check(r >= RECALL_FLOOR, f"{index}/{dtype}/{flt}: recall {r} < "
-          f"{RECALL_FLOOR}")
+    check(r >= floor, f"{index}/{dtype}/{flt}: recall {r} < {floor}")
     check(outside == 0, f"{index}/{dtype}/{flt}: {outside} keys outside")
     for name, count in counts.items():
         if name in expect:
@@ -530,14 +556,16 @@ def run_searches(torch, engine, bs, index, prefix, queries, gt, dtype,
     return keys
 
 
-def batch_qps(torch, index, queries: np.ndarray, b: int) -> float:
+def batch_qps(torch, index, queries: np.ndarray, b: int, **search) -> float:
+    """search_batch QPS over the first ``b`` queries (``search``: more
+    arguments of search_batch, such as ef)."""
     reps = max(1, 8192 // b)
     qs = queries[:b]
-    index.search_batch(qs, K)  # warm
+    index.search_batch(qs, K, **search)  # warm
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(reps):
-        index.search_batch(qs, K)  # returns host arrays: synchronised
+        index.search_batch(qs, K, **search)  # host arrays: synchronised
     return reps * b / (time.perf_counter() - t0)
 
 
@@ -766,6 +794,273 @@ def slice_phase(torch, bs, dev, gpu: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 5: HNSW, through Engine.execute and at full width at the index level
+# ---------------------------------------------------------------------------
+
+
+def _merge_launches(into: dict, launches: dict) -> None:
+    for name, count in launches.items():
+        into[name] = into.get(name, 0) + count
+
+
+def hnsw_engine(torch, bs, dev, gpu: str, corpus, queries, cats,
+                stats: dict) -> None:
+    """(a) FT.CREATE ... VECTOR HNSW (M 16, EF_CONSTRUCTION 200) + TAG,
+    N_HNSW HSETs (native inserts), FT.SEARCH KNN 10 EF_RUNTIME 100 from 16
+    threads on the scan route (pow2 capacity 131,072: K1 at pre_shift 0,
+    K2), hybrid, DEL and update; then search.hnsw-scan-threshold 0, where
+    the graph walk serves: the AoS walk unfiltered, the filtered SoA walk
+    under (-@cat:{c7}) (~99% qualify: inline), and the exact scan under
+    @cat:{c7} (~1%: pre-filtered). Each route is checked by its counters."""
+    from valkey_search_tpu_torch.runtime.metrics import STATS
+    from valkey_search_tpu_torch.server.engine import Engine
+
+    n, ef = N_HNSW, HNSW_EF
+    rows, hcats = corpus[:n], cats[:n]
+    qs, qs_gt = queries[:N_QUERIES], queries[:N_GT]
+    c7 = hcats == 7
+    c64 = torch.as_tensor(rows, dtype=torch.float64, device=dev)
+    csq = (c64 * c64).sum(1)
+    gt = fp64_gt(torch, c64, csq, qs_gt, K, dev)
+    gt_c7 = fp64_gt(torch, c64, csq, qs_gt, K, dev, c7)
+    k1_fused = "bucket_scan_i8_packed[pre_shift=0]"
+    k2 = "bucket_scan_bf16"
+
+    engine = Engine()
+    check(engine.execute(
+        "FT.CREATE", "hidx", "ON", "HASH", "PREFIX", "1", "h:", "SCHEMA",
+        "v", "VECTOR", "HNSW", "10", "TYPE", "FLOAT32", "DIM", str(D),
+        "DISTANCE_METRIC", "L2", "M", "16", "EF_CONSTRUCTION", "200",
+        "cat", "TAG") == "OK", "FT.CREATE hidx")
+    t0 = time.perf_counter()
+    ingest(engine, "h:", rows, [("cat", [f"c{c}" for c in hcats])], gpu)
+    stats["hset_us"] = (time.perf_counter() - t0) / n * 1e6
+    info = engine.execute("FT.INFO", "hidx")
+    attrs = {a[3]: a for a in info[info.index("attributes") + 1]}
+    check(attrs["v"][5] == "HNSW" and attrs["v"][7] == n,
+          f"FT.INFO hidx {attrs['v']}")
+    index = engine.manager.get("hidx").attribute("v").index
+    check(index.store.capacity == 131072, "hidx capacity")
+
+    def routed(flt, dtype, gt_, expect, allowed=None, floor=RECALL_FLOOR):
+        rec = {"launches": {}}
+        keys = run_searches(torch, engine, bs, "hidx", "h:",
+                            qs if flt == "*" else qs_gt, gt_, dtype, expect,
+                            gpu, rec, flt=flt, allowed=allowed, ef=ef,
+                            floor=floor)
+        _merge_launches(stats["launches"], rec.pop("launches"))
+        return keys, next(iter(rec.values()))
+
+    # the scan route (search.hnsw-scan-threshold defaults to 2^30)
+    _, stats["scan/int8"] = routed("*", "int8", gt, {k1_fused})
+    keys_bf16, stats["scan/bfloat16"] = routed("*", "bfloat16", gt, {k2})
+    for dtype, kernel in (("int8", k1_fused), ("bfloat16", k2)):
+        _, stats[f"scan/{dtype}/@cat:{{c7}}"] = routed(
+            "@cat:{c7}", dtype, gt_c7, {kernel}, allowed=c7)
+
+    # DEL 1,000 returned keys: none comes back; an updated vector is first
+    # (and is then set back, so the ground truth below holds)
+    deleted = list(dict.fromkeys(k for row in keys_bf16 for k in row))[:1000]
+    check(len(deleted) == 1000, f"only {len(deleted)} distinct keys")
+    check(engine.execute("DEL", *deleted) == 1000, "DEL count (hidx)")
+    gone = set(deleted)
+    target = next(f"h:{i}" for i in range(n - 1, 0, -1)
+                  if f"h:{i}" not in gone)
+    probe = queries[-3]
+    engine.execute("HSET", target, "v", probe.tobytes())
+    for dtype in ("bfloat16", "int8"):
+        engine.config_set("search.corpus-dtype", dtype)
+        keys, _ = search_all(engine, "hidx", qs, ef=ef)
+        back = sum(1 for row in keys for key in row if key in gone)
+        reply = engine.execute("FT.SEARCH", "hidx", knn("*", ef=ef),
+                               "PARAMS", "2", "q", probe.tobytes(),
+                               "RETURN", "1", "__v_score")
+        log(f"hidx after DEL of 1000 ({dtype}): {back} deleted keys "
+            f"returned; updated {target}: top hit {reply[1]} at "
+            f"{reply[2][1]}", gpu)
+        check(back == 0, f"{back} deleted keys returned (hidx, {dtype})")
+        check(reply[1] == target and abs(float(reply[2][1]))
+              <= 1e-5 * float(probe @ probe), f"updated {target} not first")
+    engine.execute("HSET", target, "v", rows[int(target[2:])].tobytes())
+
+    # the graph walk serves: each route checked by its counters
+    live = np.ones(n, bool)
+    live[[int(k[2:]) for k in deleted]] = False
+    engine.config_set("search.hnsw-scan-threshold", "0")
+    engine.config_set("search.corpus-dtype", "int8")
+    for flt, allowed, route in (("*", live, "aos"),
+                                ("(-@cat:{c7})", live & ~c7, "soa"),
+                                ("@cat:{c7}", live & c7, "scan")):
+        gt_w = fp64_gt(torch, c64, csq, qs_gt, K, dev, allowed)
+        before = {name: STATS.get(name) for name in (
+            "hnsw_searches", "hnsw_served_by_scan",
+            "vector_searches_prefiltered", "vector_searches_inline_filtered")}
+        _, rec = routed(flt, "int8", gt_w,
+                        {k1_fused} if route == "scan" else set(),
+                        allowed=allowed, floor=HNSW_WALK_FLOOR)
+        moved = {name: STATS.get(name) - v for name, v in before.items()}
+        rec["counters"] = moved
+        stats[f"walk/{route}/{flt}"] = rec
+        log(f"hidx route {route} under {flt!r}: counters {moved}", gpu)
+        check(moved["hnsw_served_by_scan"] == 0, f"{route}: served by scan")
+        if route == "scan":
+            check(moved["hnsw_searches"] == 0
+                  and moved["vector_searches_prefiltered"] > 0,
+                  f"{flt}: not the pre-filtered scan")
+        else:
+            check(moved["hnsw_searches"] >= len(qs_gt), f"{flt}: no walk")
+        if route == "aos":
+            check(index._aos_tables is not None, "the AoS mirror not built")
+        if route == "soa":
+            check(moved["vector_searches_inline_filtered"] > 0,
+                  f"{flt}: not inline")
+    engine.config_set("search.hnsw-scan-threshold", str(1 << 30))
+    del c64, csq, engine, index
+    torch.cuda.empty_cache()
+
+
+def _device_share(torch, fn) -> dict:
+    """torch.profiler over one call: device kernel time against the call's
+    host-clock time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev_events = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA
+                  and not e.is_user_annotation]
+    busy = sum(e.time_range.elapsed_us() for e in dev_events) / 1e3
+    return {"wall_ms": wall * 1e3, "device_ms": busy,
+            "device_share": busy / (wall * 1e3),
+            "device_ops": len(dev_events)}
+
+
+def hnsw_index(torch, bs, dev, gpu: str, corpus, queries, stats: dict) -> None:
+    """(b) HnswVectorIndex(dim 128, M 16, EF_CONSTRUCTION 200).bulk_load of
+    N_BIG rows under build-mode device, each stage timed, and the publish;
+    search_batch at B = 1,024, ef 100 on the scan route under int8 (K1 at
+    pre_shift > 0) and bfloat16 (K2); the device walk at ef 10, 50 and 100
+    beside the native walk over the same graph (N_NATIVE queries)."""
+    from valkey_search_tpu_torch.indexes.hnsw import HnswVectorIndex
+    from valkey_search_tpu_torch.ops import hnsw_search as hs_ops
+    from valkey_search_tpu_torch.runtime import config
+
+    n = len(corpus)
+    qs = queries[:HNSW_B]
+    c64 = torch.as_tensor(corpus, dtype=torch.float64, device=dev)
+    gt = fp64_gt(torch, c64, (c64 * c64).sum(1), qs[:N_GT], K, dev)
+    del c64
+    torch.cuda.empty_cache()
+    config.set_config("search.hnsw-build-mode", "device")
+    index = HnswVectorIndex(dim=D, m=16, ef_construction=200, device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    index.bulk_load([f"k{i}" for i in range(n)], corpus)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    graph = index.device_graph()
+    torch.cuda.synchronize()
+    publish_s = time.perf_counter() - t0
+    build = {"rows": n, "bulk_load_s": build_s, "vec_per_s": n / build_s,
+             **index.build_seconds, "publish_s": publish_s,
+             "levels": len(graph.upper_links),
+             "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
+    stats["build"] = build
+    log(f"HNSW bulk_load {n} x {D} (M 16, EF_CONSTRUCTION 200, device): "
+        + json.dumps(build), gpu)
+    check(index.node_count == n, "bulk_load node count")
+
+    # the scan route, K1 (pre_shift > 0 at cap 1,048,576) and K2
+    for dtype, kernel in (("int8", "bucket_scan_i8_packed[pre_shift>0]"),
+                          ("bfloat16", "bucket_scan_bf16")):
+        config.set_config("search.corpus-dtype", dtype)
+        index.search_batch(qs, K, ef=HNSW_EF)  # publish this dtype's mirror
+        bs.reset_launches()
+        _, ids = index.search_batch(qs, K, ef=HNSW_EF)
+        counts = bs.launch_counts()
+        r = recall(ids[:N_GT], gt)
+        qps = batch_qps(torch, index, qs, len(qs), ef=HNSW_EF)
+        _merge_launches(stats["launches"], bs.launch_counts())
+        stats[f"scan/{dtype}"] = {"recall": r, "qps": qps}
+        log(f"HNSW {n} scan route corpus-dtype={dtype} B={len(qs)} ef "
+            f"{HNSW_EF}: recall@{K} {r:.4f}, {qps:.1f} QPS, launches "
+            f"{counts}", gpu)
+        check(counts[kernel] > 0, f"HNSW {n} scan: {kernel} never launched")
+        check(r >= RECALL_FLOOR, f"HNSW {n} scan ({dtype}) recall {r}")
+
+    # the walk: check_every, then ef 10 / 50 / 100 beside the native walk
+    config.set_config("search.hnsw-scan-threshold", 0)
+    qt = torch.from_numpy(qs).to(dev)
+    hs_ops.hnsw_search_batch(graph, qt, K, HNSW_EF)  # warm
+    every = {ce: [] for ce in CHECK_EVERY_CASES}
+    for rep in range(3):  # in turns, each order reversed every other round
+        for ce in CHECK_EVERY_CASES[::1 if rep % 2 == 0 else -1]:
+            t0 = time.perf_counter()
+            hs_ops.hnsw_search_batch(graph, qt, K, HNSW_EF, check_every=ce)
+            torch.cuda.synchronize()
+            every[ce].append((time.perf_counter() - t0) * 1e3)
+    every = {ce: sorted(v) for ce, v in every.items()}
+    stats["walk_check_every_ms"] = every
+    log(f"HNSW {n} SoA walk B={len(qs)} ef {HNSW_EF}, ms by check_every "
+        f"(3 runs each, in turns; CHECK_EVERY={hs_ops.CHECK_EVERY}): "
+        + json.dumps(every), gpu)
+    native_q = qs[:N_NATIVE]
+    walk = {}
+    for ef in HNSW_EFS:
+        _, ids = index.search_batch(qs, K, ef=ef)
+        qps = batch_qps(torch, index, qs, len(qs), ef=ef)
+        t0 = time.perf_counter()
+        nat = [index.builder.search(q, K, ef)[1] for q in native_q]
+        nat_s = time.perf_counter() - t0
+        nat_ids = np.full((N_NATIVE, K), -1, np.int64)
+        for i, row in enumerate(nat):
+            nat_ids[i, :len(row)] = row
+        walk[ef] = {"recall": recall(ids[:N_GT], gt),
+                    "recall_200": recall(ids[:N_NATIVE], gt[:N_NATIVE]),
+                    "qps": qps,
+                    "native_recall_200": recall(nat_ids, gt[:N_NATIVE]),
+                    "native_qps": N_NATIVE / nat_s}
+        log(f"HNSW {n} walk ef {ef}: " + json.dumps(walk[ef]), gpu)
+    stats["walk"] = walk
+    share = _device_share(torch, lambda: index.search_batch(qs, K,
+                                                             ef=HNSW_EF))
+    stats["walk_profile"] = share
+    log(f"HNSW {n} walk B={len(qs)} ef {HNSW_EF} under torch.profiler: "
+        + json.dumps(share), gpu)
+    top = walk[HNSW_EFS[-1]]
+    check(top["recall_200"] >= top["native_recall_200"] - 0.02,
+          f"device walk recall {top['recall_200']} more than 0.02 below "
+          f"the native walk's {top['native_recall_200']}")
+    config.set_config("search.hnsw-scan-threshold", 1 << 30)
+    config.set_config("search.hnsw-build-mode", "auto")
+    del index, graph, qt
+    torch.cuda.empty_cache()
+
+
+def hnsw_phase(torch, bs, dev, gpu: str) -> dict:
+    stats = {"launches": {}}
+    corpus, queries = sift_like(N_BIG, N_QUERIES + 16384)
+    cats, _ = seeded_fields(N_BIG)
+    t0 = time.perf_counter()
+    hnsw_engine(torch, bs, dev, gpu, corpus, queries, cats, stats)
+    stats["engine_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hnsw_index(torch, bs, dev, gpu, corpus[:N_HNSW_BIG], queries, stats)
+    stats["index_s"] = time.perf_counter() - t0
+    for name in ("bucket_scan_i8_packed[pre_shift=0]",
+                 "bucket_scan_i8_packed[pre_shift>0]", "bucket_scan_bf16"):
+        check(stats["launches"].get(name, 0) > 0,
+              f"{name} never launched in the HNSW phase")
+    return stats
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -812,6 +1107,13 @@ def main() -> int:
     stats = slice_phase(torch, bs, dev, gpu)
     log(f"slice phase {time.perf_counter() - t0:.1f} s", gpu)
     log("slice stats " + json.dumps(stats), gpu)
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    hnsw = hnsw_phase(torch, bs, dev, gpu)
+    log(f"hnsw phase {time.perf_counter() - t0:.1f} s", gpu)
+    log("hnsw stats " + json.dumps(hnsw), gpu)
+    _merge_launches(stats["launches"], hnsw["launches"])
 
     replaces = {
         "bucket_scan_i8_packed[pre_shift=0]":

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from valkey_search_tpu_torch.indexes.flat import FlatVectorIndex
+from valkey_search_tpu_torch.indexes.hnsw import HnswVectorIndex
 from valkey_search_tpu_torch.ops import bucket_scan as bs
 from valkey_search_tpu_torch.ops import topk
 from valkey_search_tpu_torch.runtime import config
@@ -244,3 +245,110 @@ def test_filtered_search_batch_stays_inside_the_mask(dev, dtype):
         assert hits >= 0.98
     finally:
         config.set_config("search.corpus-dtype", saved)
+
+
+def _hnsw_state(index):
+    """An HNSW index's state, as ``HnswVectorIndex.from_reference`` takes
+    it (the port's own index stands in for the JAX package's here)."""
+    st = index.store
+    return {"vectors": st.vectors, "norms_sq": st.norms_sq,
+            "magnitudes": st.magnitudes, "present": st.present,
+            "metric": st.metric, "block": st.block, "m": index.m,
+            "ef_construction": index.ef_construction,
+            "ef_runtime": index.ef_runtime, "node_doc": index._node_doc,
+            "deleted": index._deleted, "doc_node": dict(index._doc_node),
+            "graph": index.builder.export_graph()}
+
+
+class _Options:
+    """Set port options for one test and restore them after."""
+
+    def __init__(self, **options):
+        self.options = {k.replace("_", "-"): v for k, v in options.items()}
+
+    def __enter__(self):
+        self.saved = {k: config.get("search." + k) for k in self.options}
+        for k, v in self.options.items():
+            config.set_config("search." + k, v)
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            config.set_config("search." + k, v)
+
+
+@pytest.mark.cuda
+def test_hnsw_scan_route_launches_k1_and_k2(dev):
+    """An HNSW index on the card (device bulk build) at pow2 capacity
+    131,072: its scan route reaches the fused scan, K1 under int8 and K2
+    under bfloat16, filtered and not."""
+    rng = np.random.default_rng(8)
+    n, d, k = 70_000, 32, 10
+    vecs = rng.standard_normal((n, d)).astype(np.float32)
+    index = HnswVectorIndex(dim=d, m=8, ef_construction=40, device=dev)
+    index.bulk_load([f"k{i}" for i in range(n)], vecs)
+    assert index.store.capacity == 131072 and index.build_seconds
+    q = rng.standard_normal((8, d)).astype(np.float32)
+    allowed = rng.random(n) < 0.2
+    dist = ((vecs[None, :, :] - q[:, None, :]) ** 2).sum(-1)
+    for dtype, kernel in (("int8", "bucket_scan_i8_packed[pre_shift=0]"),
+                          ("bfloat16", "bucket_scan_bf16")):
+        with _Options(corpus_dtype=dtype):
+            for mask in (None, allowed):
+                bs.reset_launches()
+                tmask = None if mask is None else torch.from_numpy(mask).to(dev)
+                _, ids = index.search_batch(q, k, filter_mask=tmask)
+                assert bs.launch_counts()[kernel] == 1
+                dd = dist if mask is None else np.where(mask, dist, np.inf)
+                want = np.argsort(dd, axis=1)[:, :k]
+                hits = np.mean([len(set(ids[i]) & set(want[i])) / k
+                                for i in range(len(q))])
+                # isotropic d 32 data is hard for the int8 coarse pass
+                # (0.975 unfiltered on the first run)
+                assert hits >= 0.95
+                if mask is not None:
+                    assert mask[ids].all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("filtered", [False, True])
+def test_hnsw_walk_on_the_card_matches_the_cpu(dev, filtered):
+    """The SoA walk over one graph, on the card and on the CPU: the same
+    ids on >= 99% of the rows."""
+    rng = np.random.default_rng(9)
+    n, d = 6000, 32
+    vecs = rng.standard_normal((n, d)).astype(np.float32)
+    cpu = HnswVectorIndex(dim=d, m=8, ef_construction=40,
+                          device=torch.device("cpu"))
+    cpu.bulk_load([f"k{i}" for i in range(n)], vecs)
+    for i in range(0, n, 20):
+        cpu.remove_record(f"k{i}")
+    card = HnswVectorIndex.from_reference(
+        _hnsw_state(cpu), dict(cpu.interner.items()), dev)
+    q = rng.standard_normal((128, d)).astype(np.float32)
+    allowed = rng.random(cpu.store.capacity) < 0.1
+    with _Options(hnsw_scan_threshold=0, hnsw_aos_budget_bytes=0):
+        masks = [None, None] if not filtered else [
+            torch.from_numpy(allowed), torch.from_numpy(allowed).to(dev)]
+        _, want = cpu.search_batch(q, 10, ef=50, filter_mask=masks[0])
+        _, got = card.search_batch(q, 10, ef=50, filter_mask=masks[1])
+    assert (got == want).all(1).mean() >= 0.99
+    assert not np.isin(got, np.arange(0, n, 20)).any()
+
+
+@pytest.mark.cuda
+def test_hnsw_short_filter_mask_does_not_assert(dev):
+    """A predicate mask shorter than the doc space, on the card: no
+    device-side assert on the walk or the scan route, and no doc past the
+    mask's end."""
+    rng = np.random.default_rng(10)
+    n, d = 5000, 16
+    vecs = rng.standard_normal((n, d)).astype(np.float32)
+    index = HnswVectorIndex(dim=d, m=8, ef_construction=40, device=dev)
+    index.bulk_load([f"k{i}" for i in range(n)], vecs)
+    short = torch.ones(n // 2, dtype=torch.bool, device=dev)
+    q = rng.standard_normal((16, d)).astype(np.float32)
+    for thresh in (1 << 30, 0):
+        with _Options(hnsw_scan_threshold=thresh):
+            _, ids = index.search_batch(q, 10, ef=40, filter_mask=short)
+            torch.cuda.synchronize()
+            assert (ids >= 0).all() and (ids < n // 2).all()

@@ -168,10 +168,10 @@ def test_unported_surface_raises_typed_errors():
     for cmd in ("FT._DEBUG", "EXPIRE", "MULTI", "SAVE", "HGET"):
         with pytest.raises(CommandError, match="not ported"):
             teng.execute(cmd, "k")
-    with pytest.raises(ValueError, match="VECTOR HNSW attributes are not"):
-        teng.execute("FT.CREATE", "h", "SCHEMA", "v", "VECTOR", "HNSW", "6",
-                     "TYPE", "FLOAT32", "DIM", "4", "DISTANCE_METRIC", "L2")
-    # TAG, NUMERIC and TEXT are ported: the index is created
+    # VECTOR HNSW, TAG, NUMERIC and TEXT are ported: the indexes are created
+    assert teng.execute("FT.CREATE", "h", "SCHEMA", "v", "VECTOR", "HNSW",
+                        "6", "TYPE", "FLOAT32", "DIM", "4",
+                        "DISTANCE_METRIC", "L2") == "OK"
     assert teng.execute("FT.CREATE", "t", "SCHEMA", "tag", "TAG", "n",
                         "NUMERIC", "title", "TEXT") == "OK"
 
@@ -214,6 +214,19 @@ assert reply[0] == 3 and set(reply[1:]) == {"k0", "k1", "k2"}, reply
 reply = e.execute("FT.SEARCH", "i", "@n:[1 4]", "SORTBY", "n", "DESC",
                   "NOCONTENT")
 assert reply == [4, "k4", "k3", "k2", "k1"], reply
+e.execute("FT.CREATE", "h", "ON", "HASH", "PREFIX", "1", "h:", "SCHEMA", "v",
+          "VECTOR", "HNSW", "10", "TYPE", "FLOAT32", "DIM", "4",
+          "DISTANCE_METRIC", "L2", "M", "4", "EF_CONSTRUCTION", "20")
+for i in range(40):
+    e.execute("HSET", f"h:{i}", "v", np.full(4, i, np.float32).tobytes())
+for knn in ("[KNN 2 @v $q]", "[KNN 2 @v $q EF_RUNTIME 8]"):
+    reply = e.execute("FT.SEARCH", "h", "*=>" + knn, "PARAMS", "2", "q", q,
+                      "NOCONTENT")
+    assert reply == [2, "h:3", "h:4"], reply
+e.config_set("search.hnsw-scan-threshold", "0")  # the graph walk serves
+reply = e.execute("FT.SEARCH", "h", "*=>[KNN 2 @v $q EF_RUNTIME 8]",
+                  "PARAMS", "2", "q", q, "NOCONTENT")
+assert reply == [2, "h:3", "h:4"], reply
 assert not [m for m in sys.modules if m.split(".")[0] in _BLOCKED]
 print("no-jax-ok")
 """

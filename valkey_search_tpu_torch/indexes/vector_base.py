@@ -17,7 +17,7 @@ IVF mirror of the JAX package is not ported yet.
 from __future__ import annotations
 
 import threading
-from typing import Dict, Optional, Sequence, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -46,9 +46,20 @@ def parse_vector(value: VectorLike, dim: int) -> np.ndarray:
     return arr
 
 
-def _round_capacity(needed: int, block: int) -> int:
-    """Small corpora grow in 2048-row steps, large ones in whole blocks
-    (flat_topk needs cap % block_rows == 0 once cap > block_rows)."""
+def _round_capacity(needed: int, block: int, growth: str = "block") -> int:
+    """Round a capacity up.
+
+    growth="block": small corpora grow in 2048-row steps, large ones in
+    whole blocks (flat_topk needs cap % block_rows == 0 once cap >
+    block_rows). growth="pow2": doubling from 2048, as the JAX package grows
+    its HNSW stores. The JAX package chose it to bound XLA recompiles; it is
+    kept because the capacity sets the fused scan's span and coarse factor,
+    so both packages then scan the same layout."""
+    if growth == "pow2":
+        cap = 2048
+        while cap < needed:
+            cap *= 2
+        return cap
     if needed <= block:
         return max(2048, -(-needed // 2048) * 2048)
     return -(-needed // block) * block
@@ -74,13 +85,15 @@ class HostVectorStore:
     """Host-authoritative vector arrays + a lazily published device mirror."""
 
     def __init__(self, dim: int, metric: str, block: int,
-                 device: Optional[torch.device] = None):
+                 device: Optional[torch.device] = None,
+                 growth: str = "block"):
         self.dim = dim
         self.metric = metric
         self.block = block
+        self.growth = growth
         self.device = torch.device(device) if device is not None \
             else get_device()
-        cap = _round_capacity(1, block)
+        cap = _round_capacity(1, block, growth)
         self.vectors = np.zeros((cap, dim), np.float32)
         self.norms_sq = np.zeros((cap,), np.float32)
         self.magnitudes = np.zeros((cap,), np.float32)  # cosine denormalization
@@ -103,7 +116,8 @@ class HostVectorStore:
         with self._lock:
             if needed <= self.capacity:
                 return
-            grow = _round_capacity(needed, self.block) - self.capacity
+            grow = (_round_capacity(needed, self.block, self.growth)
+                    - self.capacity)
             self.vectors = np.concatenate(
                 [self.vectors, np.zeros((grow, self.dim), np.float32)])
             self.norms_sq = np.concatenate(
@@ -213,10 +227,11 @@ def store_from_reference(
     metric: str,
     block: int,
     device: Optional[torch.device] = None,
+    growth: str = "block",
 ) -> HostVectorStore:
     """A store holding the JAX package's HostVectorStore rows verbatim (its
     numpy arrays), so both packages search the same state."""
-    st = HostVectorStore(vectors.shape[1], metric, block, device)
+    st = HostVectorStore(vectors.shape[1], metric, block, device, growth)
     st.vectors = np.array(vectors, np.float32)
     st.norms_sq = np.array(norms_sq, np.float32)
     st.magnitudes = np.array(magnitudes, np.float32)
@@ -236,6 +251,7 @@ class VectorIndexBase(IndexBase):
         interner: Optional[KeyInterner] = None,
         block_size: Optional[int] = None,
         device: Optional[torch.device] = None,
+        growth: str = "block",
     ):
         if metric not in ("l2", "ip", "cosine"):
             raise ValueError(f"bad metric {metric!r}")
@@ -245,7 +261,7 @@ class VectorIndexBase(IndexBase):
         self._owns_interner = interner is None
         self.interner = interner if interner is not None else KeyInterner()
         block = block_size or config.get("search.flat-block-size")
-        self.store = HostVectorStore(dim, metric, block, device)
+        self.store = HostVectorStore(dim, metric, block, device, growth)
         self._tracked: Dict[str, int] = {}
         self._lock = threading.RLock()
 
@@ -293,3 +309,21 @@ class VectorIndexBase(IndexBase):
     def count(self) -> int:
         with self._lock:
             return len(self._tracked)
+
+    def doc_of(self, key: str) -> Optional[int]:
+        with self._lock:
+            return self._tracked.get(key)
+
+    def neighbors_to_keys(
+        self, dists: np.ndarray, ids: np.ndarray
+    ) -> List[Tuple[str, float]]:
+        """One query's (dists [k], doc ids [k]) -> [(key, distance)],
+        dropping pads."""
+        out: List[Tuple[str, float]] = []
+        for d, i in zip(np.asarray(dists), np.asarray(ids)):
+            if i < 0 or not np.isfinite(d):
+                continue
+            key = self.interner.key_of(int(i))
+            if key is not None:
+                out.append((key, float(d)))
+        return out

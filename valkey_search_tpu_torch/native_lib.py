@@ -1,11 +1,11 @@
 """ctypes binding to the native C++ layer (native/, built by native/build.py).
 
 The port's own copy of valkey_search_tpu/native_lib.py, cut to what the
-port's text tier uses: the loader ``load()``, ``NativeLexer`` and
-``NativeTextIndex``, with the same names and behaviour. The native sources
-under native/ are repository-level and shared by both packages; each
-package binds them itself. ``HnswBuilder`` is not copied: HNSW is not
-ported yet.
+port uses: the loader ``load()``, ``HnswBuilder`` (the HNSW graph builder
+and its CPU search oracle), ``NativeLexer`` and ``NativeTextIndex``, with
+the same names and behaviour. The native sources under native/ are
+repository-level and shared by both packages; each package binds them
+itself.
 """
 
 from __future__ import annotations
@@ -110,6 +110,264 @@ def load() -> ct.CDLL:
         ]
         _lib = lib
         return lib
+
+
+def _fptr(a: np.ndarray):
+    return a.ctypes.data_as(ct.POINTER(ct.c_float))
+
+
+def _iptr(a: np.ndarray):
+    return a.ctypes.data_as(ct.POINTER(ct.c_int32))
+
+
+class HnswBuilder:
+    """Native HNSW graph builder + CPU search oracle.
+
+    Semantics track the reference's modified hnswlib (hnswalg.h): geometric
+    level assignment with mult=1/ln(M), ef_construction beam per layer,
+    keep-pruned-out neighbor heuristic, bidirectional connect with overflow
+    re-selection, tombstone deletes traversed-but-not-returned.
+    """
+
+    METRICS = {"l2": 0, "ip": 1, "cosine": 1}
+
+    def __init__(self, dim: int, metric: str = "l2", m: int = 16,
+                 ef_construction: int = 200, seed: int = 0x5EED):
+        self._lib = load()
+        self.dim = dim
+        self.metric = metric
+        self.m = m
+        self.ef_construction = ef_construction
+        self._h = self._lib.hnsw_create(
+            dim, self.METRICS[metric], m, ef_construction, seed
+        )
+        self._lock = threading.Lock()
+
+    def __del__(self):
+        h = getattr(self, "_h", None)
+        if h:
+            self._lib.hnsw_free(h)
+            self._h = None
+
+    # -- construction -------------------------------------------------------
+    def add(self, vec: np.ndarray) -> int:
+        vec = np.ascontiguousarray(vec, np.float32)
+        with self._lock:
+            return int(self._lib.hnsw_add(self._h, _fptr(vec)))
+
+    def add_batch(self, vecs: np.ndarray, threads: int = 1) -> np.ndarray:
+        """Batch insert. threads > 1 builds concurrently (per-node striped
+        locks + global entry lock — reference thread-safe addPoint,
+        hnswalg.h:1260-1270); the C call releases the GIL, so worker
+        threads scale on real cores."""
+        vecs = np.ascontiguousarray(vecs, np.float32)
+        out = np.empty(vecs.shape[0], np.int32)
+        with self._lock:
+            if threads > 1:
+                self._lib.hnsw_add_batch_mt(
+                    self._h, _fptr(vecs), vecs.shape[0], int(threads),
+                    _iptr(out)
+                )
+            else:
+                self._lib.hnsw_add_batch(
+                    self._h, _fptr(vecs), vecs.shape[0], _iptr(out)
+                )
+        return out
+
+    def add_batch_seeded(self, vecs: np.ndarray,
+                         seeds: np.ndarray) -> np.ndarray:
+        """Insert a batch with device-computed level-0 candidate pools.
+
+        ``seeds``: [n, k] int32 node ids — for row i, the exact nearest
+        nodes of vecs[i] among all node ids < (count + i), -1 padded.
+        The builder skips the level-0 ef_construction beam entirely
+        (add_seeded): candidate quality is exact, so recall matches or
+        beats beam-built graphs at a fraction of the host cost."""
+        vecs = np.ascontiguousarray(vecs, np.float32)
+        seeds = np.ascontiguousarray(seeds, np.int32)
+        assert seeds.shape[0] == vecs.shape[0]
+        out = np.empty(vecs.shape[0], np.int32)
+        with self._lock:
+            self._lib.hnsw_add_batch_seeded(
+                self._h, _fptr(vecs), vecs.shape[0], _iptr(seeds),
+                seeds.shape[1], _iptr(out),
+            )
+        return out
+
+    def bulk_build(self, vecs: np.ndarray, levels: np.ndarray,
+                   links: np.ndarray) -> np.ndarray:
+        """Vectorized bulk construction from device-pruned KNN links
+        (ops/hnsw_build.py). Requires an empty builder; returns node ids
+        0..n-1 (insertion order == row order)."""
+        vecs = np.ascontiguousarray(vecs, np.float32)
+        levels = np.ascontiguousarray(levels, np.int32)
+        links = np.ascontiguousarray(links, np.int32)
+        n = vecs.shape[0]
+        assert levels.shape[0] == n and links.shape[0] == n
+        with self._lock:
+            rc = self._lib.hnsw_bulk_build(
+                self._h, _fptr(vecs), n, _iptr(levels), _iptr(links),
+                links.shape[1],
+            )
+        if rc != 0:
+            raise RuntimeError("bulk_build requires an empty index")
+        return np.arange(n, dtype=np.int32)
+
+    @property
+    def dirty_count(self) -> int:
+        return int(self._lib.hnsw_dirty_count(self._h))
+
+    @property
+    def upper_dirty(self) -> bool:
+        return bool(self._lib.hnsw_upper_dirty(self._h))
+
+    def export_dirty(self):
+        """(nodes [n], links0 [n, 2m], deleted [n]) of changed level-0
+        rows since the last export; clears the dirty set."""
+        n = self.dirty_count
+        nodes = np.empty(max(n, 1), np.int32)
+        links = np.empty((max(n, 1), 2 * self.m), np.int32)
+        deleted = np.empty(max(n, 1), np.uint8)
+        with self._lock:
+            got = int(self._lib.hnsw_export_dirty(
+                self._h, _iptr(nodes), _iptr(links),
+                deleted.ctypes.data_as(ct.POINTER(ct.c_uint8)),
+            ))
+        return nodes[:got], links[:got], deleted[:got].astype(bool)
+
+    def clear_dirty(self) -> None:
+        with self._lock:
+            self._lib.hnsw_clear_dirty(self._h)
+
+    def components(self) -> np.ndarray:
+        """Level-0 connected-component labels [count] (undirected)."""
+        n = self.count
+        out = np.empty(n, np.int32)
+        if n == 0:
+            return out
+        with self._lock:
+            self._lib.hnsw_components(self._h, _iptr(out))
+        return out
+
+    def add_bridge(self, u: int, v: int) -> None:
+        """Force a mutual level-0 edge (connectivity repair)."""
+        with self._lock:
+            self._lib.hnsw_add_bridge(self._h, int(u), int(v))
+
+    def mark_deleted(self, node: int, flag: bool = True) -> None:
+        with self._lock:
+            self._lib.hnsw_mark_deleted(self._h, node, int(flag))
+
+    # -- CPU oracle search ---------------------------------------------------
+    def search(self, q: np.ndarray, k: int, ef: int) -> Tuple[np.ndarray, np.ndarray]:
+        q = np.ascontiguousarray(q, np.float32)
+        ids = np.full(k, -1, np.int32)
+        dists = np.full(k, np.inf, np.float32)
+        with self._lock:
+            n = self._lib.hnsw_search(
+                self._h, _fptr(q), k, ef, _iptr(ids), _fptr(dists)
+            )
+        return dists[:n], ids[:n]
+
+    # -- introspection -------------------------------------------------------
+    @property
+    def count(self) -> int:
+        return int(self._lib.hnsw_count(self._h))
+
+    @property
+    def entry(self) -> int:
+        return int(self._lib.hnsw_entry(self._h))
+
+    @property
+    def max_level(self) -> int:
+        return int(self._lib.hnsw_max_level(self._h))
+
+    @property
+    def dist_comps(self) -> int:
+        return int(self._lib.hnsw_dist_comps(self._h))
+
+    def memory_bytes(self) -> int:
+        return int(self._lib.hnsw_bytes(self._h))
+
+    # -- graph export for device upload / checkpoint -------------------------
+    def export_uppers(self):
+        """Per-level upper exports (levels 1..max_level) — small
+        (~count/M rows total), re-exported whole when any upper changed."""
+        uppers = []
+        level = 1
+        n = self.count
+        while n and level <= self.max_level:
+            cnt = int(self._lib.hnsw_count_at_level(self._h, level))
+            nodes = np.empty(max(cnt, 1), np.int32)
+            links = np.empty((max(cnt, 1), self.m), np.int32)
+            got = int(self._lib.hnsw_export_upper(
+                self._h, level, _iptr(nodes), _iptr(links)
+            ))
+            uppers.append({"nodes": nodes[:got], "links": links[:got]})
+            level += 1
+        return uppers
+
+    def export_graph(self) -> dict:
+        n = self.count
+        m0 = 2 * self.m
+        links0 = np.empty((n, m0), np.int32)
+        levels = np.empty(n, np.int32)
+        deleted = np.empty(n, np.uint8)
+        if n:
+            self._lib.hnsw_export_links0(self._h, _iptr(links0))
+            self._lib.hnsw_export_levels(self._h, _iptr(levels))
+            self._lib.hnsw_export_deleted(
+                self._h, deleted.ctypes.data_as(ct.POINTER(ct.c_uint8))
+            )
+        uppers = []
+        level = 1
+        while n and level <= self.max_level:
+            cnt = int(self._lib.hnsw_count_at_level(self._h, level))
+            nodes = np.empty(max(cnt, 1), np.int32)
+            links = np.empty((max(cnt, 1), self.m), np.int32)
+            got = int(self._lib.hnsw_export_upper(
+                self._h, level, _iptr(nodes), _iptr(links)
+            ))
+            uppers.append({"nodes": nodes[:got], "links": links[:got]})
+            level += 1
+        return {
+            "links0": links0,
+            "levels": levels,
+            "deleted": deleted.astype(bool),
+            "uppers": uppers,
+            "entry": self.entry,
+            "max_level": self.max_level,
+            "count": n,
+        }
+
+    def import_graph(self, vectors: np.ndarray, graph: dict) -> None:
+        """Restore builder state from export_graph() output + vectors."""
+        n = int(graph["count"])
+        levels = np.ascontiguousarray(graph["levels"], np.int32)
+        links0 = np.ascontiguousarray(graph["links0"], np.int32)
+        deleted = np.ascontiguousarray(
+            np.asarray(graph["deleted"]).astype(np.uint8)
+        )
+        vectors = np.ascontiguousarray(vectors[:n], np.float32)
+        # rebuild per-node flat upper arrays from per-level exports
+        offsets = np.zeros(max(n, 1), np.int64)
+        sizes = levels.astype(np.int64) * self.m
+        if n:
+            offsets[1:] = np.cumsum(sizes)[:-1]
+        upper_flat = np.full(int(sizes.sum()) or 1, -1, np.int32)
+        for li, lv in enumerate(graph["uppers"], start=1):
+            for node, row in zip(lv["nodes"], lv["links"]):
+                off = int(offsets[node]) + (li - 1) * self.m
+                upper_flat[off : off + self.m] = row
+        rc = self._lib.hnsw_import(
+            self._h, n, _fptr(vectors), _iptr(links0), _iptr(levels),
+            deleted.ctypes.data_as(ct.POINTER(ct.c_uint8)),
+            _iptr(upper_flat),
+            offsets.ctypes.data_as(ct.POINTER(ct.c_int64)),
+            int(graph["entry"]), int(graph["max_level"]),
+        )
+        if rc != 0:
+            raise ValueError(f"hnsw_import failed: corrupt graph (code {rc})")
 
 
 

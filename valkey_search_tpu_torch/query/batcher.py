@@ -23,7 +23,10 @@ for followers before launching.
 
 The port's own copy of valkey_search_tpu/query/batcher.py: the same
 names, defaults and behaviour, with its imports pointing into
-valkey_search_tpu_torch.
+valkey_search_tpu_torch, and one repair: a submit wakes every waiting
+dispatcher (``notify_all``). The JAX package wakes one, which under mixed
+(index, k, ef) signatures can be another signature's worker, so a query
+could wait out IDLE_S.
 """
 
 from __future__ import annotations
@@ -87,7 +90,10 @@ class VectorQueryBatcher:
                     daemon=True,
                 ).start()
             else:
-                self._cond.notify()
+                # every waiter: the dispatchers of all signatures share one
+                # condition, and a single wake-up can reach another
+                # signature's worker while this one's sleeps out IDLE_S
+                self._cond.notify_all()
         return q.future
 
     def _worker(self, sig: tuple, index, k: int, ef: Optional[int]) -> None:

@@ -1,14 +1,16 @@
 """Search executor: parsed query -> device scan -> neighbors.
 
 Counterpart of valkey_search_tpu/query/search.py (reference
-src/query/search.{h,cc}) for FLAT vector attributes. An unfiltered KNN goes
-through the query batcher (the port's copy of the JAX package's), so
-concurrent searches coalesce into one ``search_batch`` launch; a filtered
-KNN is one
-``search_batch`` launch of its own over the predicate's device mask (TAG,
-NUMERIC and TEXT leaves under And/Or/Negate), which the coarse scans fold
-into their bias; a query without KNN resolves its predicate on the host.
-HNSW attributes are not ported yet.
+src/query/search.{h,cc}) for FLAT and HNSW vector attributes. An
+unfiltered KNN goes through the query batcher (the port's copy of the JAX
+package's), so concurrent searches coalesce into one ``search_batch``
+launch; for HNSW the batch signature carries ``ef`` (EF_RUNTIME). A
+filtered KNN is one launch of its own over the predicate's device mask
+(TAG, NUMERIC and TEXT leaves under And/Or/Negate): a FLAT index folds the
+mask into its scan; an HNSW index scans the qualified rows exactly
+(``exact_search_batch``) when the planner pre-filters, and walks the graph
+with the mask inline otherwise. A query without KNN resolves its predicate
+on the host.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from valkey_search_tpu_torch.runtime import config
 from valkey_search_tpu_torch.runtime.metrics import STATS
 from valkey_search_tpu_torch.utils import cancel
 from valkey_search_tpu_torch.indexes.flat import FlatVectorIndex
+from valkey_search_tpu_torch.indexes.hnsw import HnswVectorIndex
 from valkey_search_tpu_torch.query import parser as qparser
 from valkey_search_tpu_torch.query import predicate as P
 
@@ -89,7 +92,7 @@ def execute_search(schema, sp: SearchParameters, token=None) -> SearchResponse:
     pred, knn = qparser.parse_query(sp.query, sp.params)
     ctx = P.EvalContext(schema)
     if knn is not None:
-        resp = _search_vector(schema, ctx, pred, knn)
+        resp = _search_vector(schema, ctx, pred, knn, sp)
     else:
         resp = _search_non_vector(schema, ctx, pred, sp, token)
     resp.predicate = pred
@@ -101,10 +104,10 @@ def execute_search(schema, sp: SearchParameters, token=None) -> SearchResponse:
     return resp
 
 
-def _search_vector(schema, ctx, pred, knn) -> SearchResponse:
+def _search_vector(schema, ctx, pred, knn, sp) -> SearchResponse:
     attr = schema.attribute(knn.field)
     index = attr.index
-    if not isinstance(index, FlatVectorIndex):
+    if not isinstance(index, (HnswVectorIndex, FlatVectorIndex)):
         raise QueryError(f"@{knn.field} is not a VECTOR attribute")
     qvec = np.frombuffer(knn.vector, dtype="<f4")
     if qvec.shape[0] != index.dim:
@@ -112,10 +115,13 @@ def _search_vector(schema, ctx, pred, knn) -> SearchResponse:
             f"query vector has {qvec.shape[0]} dims, @{knn.field} expects "
             f"{index.dim}"
         )
+    ef = sp.ef_runtime or knn.ef_runtime
+    hnsw = isinstance(index, HnswVectorIndex)
     score_field = knn.score_as or f"__{knn.field}_score"
     if isinstance(pred, P.MatchAll):
         # concurrent unfiltered searches coalesce into one launch
-        d_row, doc_row = batcher.submit(index, qvec, knn.k, None).result()
+        d_row, doc_row = batcher.submit(index, qvec, knn.k,
+                                        ef if hnsw else None).result()
         d, docs = d_row[None], doc_row[None]
         STATS.incr("vector_searches_unfiltered")
     else:
@@ -123,10 +129,17 @@ def _search_vector(schema, ctx, pred, knn) -> SearchResponse:
         mask = pred.device_mask(ctx)
         # a FLAT index always pre-filters (planner.cc:26-28): its scan scores
         # every row anyway, with the mask folded into the bias
-        d, docs = index.search_batch(qvec[None], knn.k, filter_mask=mask)
-        STATS.incr("vector_searches_prefiltered"
-                   if planner.use_prefiltering(qualified, index)
-                   else "vector_searches_inline_filtered")
+        if planner.use_prefiltering(qualified, index):
+            if hnsw:  # exact scoring over the qualified set (search.cc:456)
+                d, docs = index.exact_search_batch(qvec[None], knn.k, mask)
+            else:
+                d, docs = index.search_batch(qvec[None], knn.k,
+                                             filter_mask=mask)
+            STATS.incr("vector_searches_prefiltered")
+        else:
+            d, docs = index.search_batch(qvec[None], knn.k, ef=ef,
+                                         filter_mask=mask)
+            STATS.incr("vector_searches_inline_filtered")
 
     neighbors = []
     for dist, doc in zip(d[0], docs[0]):

@@ -6,9 +6,9 @@ predicate masks and vector rows align on one doc-id space; masks are bool
 tensors on the schema's device. ``upsert``/``delete`` are the synchronous
 write path.
 
-TAG, NUMERIC, TEXT and ``VECTOR FLAT`` attributes are ported; adding an
-HNSW attribute raises ``SchemaError``. ``schema_from_reference`` builds a
-schema over the JAX package's exported host state under the same doc ids.
+TAG, NUMERIC, TEXT, ``VECTOR FLAT`` and ``VECTOR HNSW`` attributes are
+ported. ``schema_from_reference`` builds a schema over the JAX package's
+exported host state under the same doc ids.
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ from valkey_search_tpu_torch.schema.attribute_data_type import data_type_for
 from valkey_search_tpu_torch.utils.interning import KeyInterner
 from valkey_search_tpu_torch.indexes.base import IndexBase, RecordResult
 from valkey_search_tpu_torch.indexes.flat import FlatVectorIndex
+from valkey_search_tpu_torch.indexes.hnsw import HnswVectorIndex
 from valkey_search_tpu_torch.indexes.numeric import NumericIndex
 from valkey_search_tpu_torch.indexes.tag import TagIndex
 from valkey_search_tpu_torch.indexes.vector_base import store_from_reference
@@ -125,11 +126,15 @@ class IndexSchema:
         if dim <= 0:
             raise ValueError("vector DIM must be positive")
         if algorithm.upper() == "HNSW":
-            raise _not_ported("VECTOR HNSW", "indexes/hnsw.py")
-        if algorithm.upper() != "FLAT":
+            idx: IndexBase = HnswVectorIndex(
+                dim=dim, metric=metric, m=m, ef_construction=ef_construction,
+                ef_runtime=ef_runtime, interner=self.interner,
+                device=self.device)
+        elif algorithm.upper() == "FLAT":
+            idx = FlatVectorIndex(dim=dim, metric=metric,
+                                  interner=self.interner, device=self.device)
+        else:
             raise ValueError(f"unknown vector algorithm {algorithm!r}")
-        idx = FlatVectorIndex(dim=dim, metric=metric, interner=self.interner,
-                              device=self.device)
         return self._add(alias, identifier, idx)
 
     def _add(self, alias: str, identifier: Optional[str],
@@ -150,7 +155,8 @@ class IndexSchema:
         return a
 
     def vector_attributes(self) -> List[Attribute]:
-        return [a for a in self.attributes.values() if a.kind == "FLAT"]
+        return [a for a in self.attributes.values()
+                if a.kind in ("HNSW", "FLAT")]
 
     # -- key routing ---------------------------------------------------------
     def matches_key(self, key: str) -> bool:
@@ -259,15 +265,16 @@ def schema_from_reference(state: Mapping[str, object],
     ``interner_capacity``, ``documents`` (key -> raw fields) and
     ``attributes``, a list of dicts with ``alias``, ``identifier``, ``kind``
     and the kind's options (TAG: ``separator``, ``case_sensitive``; TEXT:
-    ``no_stem``, ``with_suffix_trie``, ``weight``; FLAT: the ``arrays`` that
-    ``FlatVectorIndex.from_reference`` takes). Vector rows are copied
-    verbatim; tag, numeric and text values are replayed from each key's
-    fields under the key's own doc id, so masks and KNN ids compare bit for
-    bit with the JAX package's."""
+    ``no_stem``, ``with_suffix_trie``, ``weight``; FLAT and HNSW: the
+    ``arrays`` that ``FlatVectorIndex.from_reference`` and
+    ``HnswVectorIndex.from_reference`` take). Vector rows and HNSW graphs
+    are copied verbatim; tag, numeric and text values are replayed from each
+    key's fields under the key's own doc id, so masks and KNN ids compare
+    bit for bit with the JAX package's."""
     schema = IndexSchema(str(state["name"]), prefixes=state["prefixes"],
                          on=str(state["on"]), device=device)
     schema.text_options = state.get("text_options")
-    flat = []
+    flat, hnsw = [], []
     for a in state["attributes"]:
         alias, ident, kind = a["alias"], a["identifier"], a["kind"]
         if kind == "TAG":
@@ -290,6 +297,16 @@ def schema_from_reference(state: Mapping[str, object],
                 arr["magnitudes"], arr["present"], metric=str(arr["metric"]),
                 block=int(arr["block"]), device=schema.device)
             flat.append(attr.index)
+        elif kind == "HNSW":
+            arr = a["arrays"]
+            attr = schema.add_vector_attribute(
+                alias, ident, algorithm="HNSW",
+                dim=np.asarray(arr["vectors"]).shape[1],
+                metric=str(arr["metric"]), m=int(arr["m"]),
+                ef_construction=int(arr["ef_construction"]),
+                ef_runtime=int(arr["ef_runtime"]))
+            attr.index.adopt_reference(arr)
+            hnsw.append(attr.index)
         else:
             raise _not_ported(kind, "indexes/")
     mapping = dict(state["keys_by_doc"])
@@ -298,12 +315,14 @@ def schema_from_reference(state: Mapping[str, object],
         present = index.store.present
         index._tracked = {k: d for k, d in mapping.items()
                           if d < len(present) and present[d]}
+    for index in hnsw:
+        index.track_reference_keys(mapping)
     for key, fields in state["documents"].items():
         schema._documents[key] = dict(fields)
         if key not in mapping:
             continue  # dropped as invalid, or indexes nothing
         for attr in schema.attributes.values():
-            if attr.kind == "FLAT":
+            if attr.kind in ("HNSW", "FLAT"):
                 continue
             val = schema.data_type.fetch(fields, attr.identifier)
             if val is not None:

@@ -8,8 +8,10 @@ vectors:
     FT.CREATE, FT.SEARCH, FT.INFO, FT._LIST, FT.DROPINDEX,
     HSET, HGETALL, DEL.
 
-An HSET indexes every field a subscribed schema declares (VECTOR FLAT, TAG,
-NUMERIC, TEXT); a DEL removes the key from every index.
+An HSET indexes every field a subscribed schema declares (VECTOR FLAT and
+HNSW, TAG, NUMERIC, TEXT); a DEL removes the key from every index. FT.INFO
+reports an HNSW attribute as the JAX package does; the cron's HNSW vacuum is
+not ported (``HnswVectorIndex.vacuum`` stays callable).
 
 Commands whose modules are not ported yet raise ``CommandError`` naming the
 module of the JAX package that serves them; ACL users other than "default",

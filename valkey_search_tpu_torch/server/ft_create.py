@@ -1,8 +1,8 @@
 """FT.CREATE argument parsing → IndexSchema.
 
 Copied from valkey_search_tpu/server/ft_create.py, building the port's
-IndexSchema (TAG, NUMERIC, TEXT and VECTOR FLAT; VECTOR HNSW raises
-SchemaError, not ported yet).
+IndexSchema (TAG, NUMERIC, TEXT, VECTOR FLAT and VECTOR HNSW with its M,
+EF_CONSTRUCTION and EF_RUNTIME).
 
 Reference: src/commands/ft_create_parser.cc (892 LoC) parsing the grammar in
 docs/commands/ft.create.md. Index-level options LANGUAGE/SCORE/SCORE_FIELD/
