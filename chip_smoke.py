@@ -41,6 +41,7 @@ Phases (each failure exits non-zero; there is no CPU path):
               search_batch QPS; and where a hybrid request's time goes
               (profile_hybrid: 1 against 16 threads, the GIL switch
               interval, torch.profiler's device time per request);
+   Then (a) of the ivf phase on the 1M index (ivf_engine_route);
 5. hnsw     - (a) FT.CREATE ... VECTOR HNSW (M 16, EF_CONSTRUCTION 200) +
               cat TAG and 100,000 HSETs (native inserts): FT.SEARCH KNN 10
               EF_RUNTIME 100 from 16 threads on the scan route (pow2
@@ -53,6 +54,29 @@ Phases (each failure exits non-zero; there is no CPU path):
               at B = 1,024 on the scan route (K1 at pre_shift > 0, K2) and
               the walk at ef 10, 50 and 100 beside the native walk over the
               same graph; the walk's device share under torch.profiler.
+              Then (a) of the ivf phase on the 100k HNSW index;
+6. ivf      - (a) ivf_engine_route, on the slice's 1M FLAT index with
+              search.ivf-threshold 500,000 and on the 100k HNSW index with
+              50,000 (EF_RUNTIME 100): FT.SEARCH KNN 10 from 16 threads
+              under int8 builds the IVF mirror once on the card and IVF
+              serves every query, with no scan launch (the ivf_* counters);
+              recall@10 >= 0.95 on the 1,024 queries against fp64
+              ground truth over the live rows; a @cat:{c7}
+              hybrid query takes the scan (K1); deleted keys never return;
+              an updated key comes first at distance 0 through the delta
+              overlay, with no rebuild. (b) ivf_phase: a 10,000,000 x 128
+              FLAT index (the recipe made on the card in seeded 1M-row
+              chunks) through bulk_load at the default threshold: the
+              mirror's build_ivf_device stages, size and peak memory;
+              search_batch at B = 1,024 and 16,384, probe 8, 16 and 32 (QPS
+              the median of 5, recall@10 >= 0.99 at the default probe, the
+              stage-2 route of each, both routes required); a torch.profiler
+              split of one B = 16,384 batch by ops/ivf.py's ranges, and the
+              wall and device time of 8 B = 1,024 calls one by one; the
+              fused scan over the same index (K1b, K2); the host-fed
+              build_ivf against build_ivf_device over the first 1,000,000
+              rows (recall on 16,384 queries within 0.01 at the same
+              probe).
 
 The next-to-last line is the card's name and power limit as nvidia-smi gives
 them; the line before it the kernels' JSON record; the last line the result.
@@ -114,6 +138,33 @@ N_NATIVE = 200
 CHECK_EVERY_CASES = (1, 2, 4, 8, 16)
 # the engine's walk routes are reported; this floor only catches breakage
 HNSW_WALK_FLOOR = 0.9
+# the IVF phase: search.ivf-threshold on the slice's 1M FLAT index and on
+# the 100k HNSW index (the default is 3,000,000), the engine routes' recall
+# floor (8 blocks of ~2,048 cover too little at 1M for 0.99), the returned
+# keys deleted there; the full-width FLAT index, generated in seeded chunks
+# of IVF_CHUNK rows; its probes, batches and timed repetitions, and the small
+# batch's calls profiled one by one; the rows of
+# the host-fed build_ivf, how far its recall may lie from
+# build_ivf_device's over the same rows, and on how many queries
+IVF_FLAT_THRESHOLD = 500_000
+IVF_HNSW_THRESHOLD = 50_000
+IVF_DEFAULT_THRESHOLD = 3_000_000
+IVF_ENGINE_FLOOR = 0.95
+IVF_DELETED = 200
+N_IVF = 10_000_000
+IVF_CHUNK = 1_000_000
+IVF_PROBES = (8, 16, 32)
+IVF_BATCHES = (1024, 16384)
+IVF_REPS = 5
+IVF_PROFILED_CALLS = 8
+N_IVF_HOST = 1_000_000
+IVF_HOST_TOLERANCE = 0.01
+# the queries the two builds' recalls are read on: two builds of one corpus
+# differ by a few thousandths of recall, and 256 queries read a gap to about
+# +-0.004 alone
+IVF_HOST_QUERIES = 16_384
+IVF_COUNTERS = ("ivf_mirror_builds", "ivf_served_searches",
+                "ivf_stage2_grouped", "ivf_stage2_steps")
 
 
 class SmokeFailure(RuntimeError):
@@ -191,10 +242,11 @@ def fp64_gt(torch, c64, csq, queries, k: int, device,
     return np.concatenate(out)
 
 
-def recall(ids: np.ndarray, gt: np.ndarray) -> float:
-    k = gt.shape[1]
+def recall(ids, gt) -> float:
+    """recall@k of ``ids`` (rows of ids or keys) against ``gt`` [n, k]."""
+    k = len(gt[0])
     return float(np.mean([
-        len(set(ids[i][:k].tolist()) & set(gt[i].tolist())) / k
+        len(set(list(ids[i])[:k]) & set(list(gt[i]))) / k
         for i in range(len(gt))
     ]))
 
@@ -773,6 +825,10 @@ def slice_phase(torch, bs, dev, gpu: str) -> dict:
         check(abs(dist) <= 1e-5 * float(probe @ probe),
               f"updated vector at distance {dist}, not 0 ({dtype})")
     hybrid_mutations(engine, corpus, queries, gpu)
+    # (a) IVF through the engine on this index, its rows as they are now
+    stats["ivf_route"] = ivf_engine_route(
+        torch, bs, engine, "idx", qs, live_gt_keys(torch, index, qs, dev),
+        queries[-7], IVF_FLAT_THRESHOLD, k1_shift, gpu)
 
     check(engine.execute(
         "FT.CREATE", "small", "ON", "HASH", "PREFIX", "1", "small:", "SCHEMA",
@@ -915,13 +971,21 @@ def hnsw_engine(torch, bs, dev, gpu: str, corpus, queries, cats,
             check(moved["vector_searches_inline_filtered"] > 0,
                   f"{flt}: not inline")
     engine.config_set("search.hnsw-scan-threshold", str(1 << 30))
+    # (a) IVF through the engine on this index: its live rows are nodes
+    gt_live = fp64_gt(torch, c64, csq, qs, K, dev, live)
+    stats["ivf_route"] = ivf_engine_route(
+        torch, bs, engine, "hidx", qs, [[f"h:{i}" for i in row]
+                                        for row in gt_live],
+        queries[-9], IVF_HNSW_THRESHOLD, k1_fused, gpu, ef=ef)
     del c64, csq, engine, index
     torch.cuda.empty_cache()
 
 
-def _device_share(torch, fn) -> dict:
+def _device_share(torch, fn, ranges: str = "") -> dict:
     """torch.profiler over one call: device kernel time against the call's
-    host-clock time."""
+    host-clock time; with ``ranges``, also the device ms under each
+    record_function range whose name starts with it (``by_range``) and
+    outside them."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -936,9 +1000,17 @@ def _device_share(torch, fn) -> dict:
                   if e.device_type == DeviceType.CUDA
                   and not e.is_user_annotation]
     busy = sum(e.time_range.elapsed_us() for e in dev_events) / 1e3
-    return {"wall_ms": wall * 1e3, "device_ms": busy,
-            "device_share": busy / (wall * 1e3),
-            "device_ops": len(dev_events)}
+    out = {"wall_ms": wall * 1e3, "device_ms": busy,
+           "device_share": busy / (wall * 1e3), "device_ops": len(dev_events)}
+    if ranges:
+        split = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CPU and e.name.startswith(ranges):
+                split[e.name] = (split.get(e.name, 0.0)
+                                 + e.device_time_total / 1e3)
+        out["by_range"] = split
+        out["outside_ms"] = busy - sum(split.values())
+    return out
 
 
 def hnsw_index(torch, bs, dev, gpu: str, corpus, queries, stats: dict) -> None:
@@ -1061,6 +1133,339 @@ def hnsw_phase(torch, bs, dev, gpu: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 6: IVF, through Engine.execute and at full width at the index level
+# ---------------------------------------------------------------------------
+
+
+def ivf_counters(stats_table, before=None) -> dict:
+    """The IVF counters, or how far they moved since ``before``."""
+    now = {name: stats_table.get(name) for name in IVF_COUNTERS}
+    if before is None:
+        return now
+    return {name: now[name] - before[name] for name in IVF_COUNTERS}
+
+
+def ivf_engine_route(torch, bs, engine, name: str, queries, gt_keys, probe,
+                     threshold: int, kernel: str, gpu: str,
+                     ef: int = 0) -> dict:
+    """The IVF route of an engine index: search.ivf-threshold at
+    ``threshold``, FT.SEARCH KNN 10 (EF_RUNTIME ``ef``) from THREADS threads
+    under int8: the mirror builds once on the card, IVF serves every query
+    and no scan kernel launches; recall@10 against ``gt_keys``; a
+    @cat:{c7} hybrid query takes the scan (``kernel``) and not IVF; deleted
+    returned keys never come back; a key updated to ``probe`` comes first
+    at distance 0 through the delta overlay, with no rebuild. The threshold
+    is restored to its default."""
+    from valkey_search_tpu_torch.runtime.metrics import STATS
+
+    engine.config_set("search.corpus-dtype", "int8")
+    engine.config_set("search.ivf-threshold", str(threshold))
+    rec = {}
+    try:
+        start = ivf_counters(STATS)
+        bs.reset_launches()
+        t0 = time.perf_counter()
+        keys, lat = search_all(engine, name, queries, ef=ef)
+        rec["wall_s"] = time.perf_counter() - t0
+        launched = sum(bs.launch_counts().values())
+        moved = ivf_counters(STATS, start)
+        index = engine.manager.get(name).attribute("v").index
+        rec.update(recall=recall(keys[:len(gt_keys)], gt_keys),
+                   p50_ms=float(np.percentile(lat, 50)) * 1e3,
+                   p99_ms=float(np.percentile(lat, 99)) * 1e3,
+                   counters=moved, scan_launches=launched,
+                   build_seconds=index.ivf_build_seconds,
+                   n_blocks=index._ivf.n_blocks)
+        log(f"IVF route {name} (ivf-threshold {threshold}, ef {ef}): "
+            + json.dumps(rec), gpu)
+        check(moved["ivf_mirror_builds"] == 1,
+              f"{name}: {moved['ivf_mirror_builds']} mirror builds, not 1")
+        check("sample_fit_s" in index.ivf_build_seconds,
+              f"{name}: the mirror was not built from the device mirror")
+        check(moved["ivf_served_searches"] >= len(queries),
+              f"{name}: IVF served {moved['ivf_served_searches']} queries")
+        check(launched == 0, f"{name}: {launched} scan launches under IVF")
+        check(rec["recall"] >= IVF_ENGINE_FLOOR,
+              f"{name}: IVF recall {rec['recall']} < {IVF_ENGINE_FLOOR}")
+
+        before = ivf_counters(STATS)
+        bs.reset_launches()
+        engine.execute("FT.SEARCH", name, knn("@cat:{c7}", ef=ef), "PARAMS",
+                       "2", "q", queries[0].tobytes(), "NOCONTENT")
+        hybrid = ivf_counters(STATS, before)["ivf_served_searches"]
+        counts = bs.launch_counts()
+        log(f"IVF route {name}: @cat:{{c7}} served by IVF {hybrid}, "
+            f"launches {counts}", gpu)
+        check(hybrid == 0 and counts[kernel] > 0,
+              f"{name}: the hybrid query did not take the scan")
+
+        gone = list(dict.fromkeys(k for row in keys for k in row))
+        gone = gone[:IVF_DELETED]
+        check(engine.execute("DEL", *gone) == len(gone), f"DEL ({name})")
+        after, _ = search_all(engine, name, queries, ef=ef)
+        gone = set(gone)
+        back = sum(1 for row in after for k in row if k in gone)
+        target = next(k for row in after for k in row if k not in gone)
+        engine.execute("HSET", target, "v", probe.tobytes())
+        reply = engine.execute("FT.SEARCH", name, knn("*", ef=ef), "PARAMS",
+                               "2", "q", probe.tobytes(), "RETURN", "1",
+                               "__v_score")
+        dist = float(reply[2][1])
+        total = ivf_counters(STATS, start)
+        rec.update(deleted_returned=back, update_top=reply[1],
+                   update_dist=dist, counters_total=total)
+        log(f"IVF route {name}: after DEL of {len(gone)} returned keys "
+            f"{back} came back; updated {target}: top hit {reply[1]} at "
+            f"{dist}; counters {total}", gpu)
+        check(back == 0, f"{name}: {back} deleted keys returned under IVF")
+        check(reply[1] == target and abs(dist) <= 1e-5 * float(probe @ probe),
+              f"{name}: updated {target} not first at distance 0")
+        check(total["ivf_mirror_builds"] == 1,
+              f"{name}: the mirror rebuilt after DEL/HSET")
+    finally:
+        engine.config_set("search.ivf-threshold", str(IVF_DEFAULT_THRESHOLD))
+    return rec
+
+
+def live_gt_keys(torch, index, queries, dev):
+    """fp64 ground truth over an index's live rows, as keys."""
+    docs = np.nonzero(index.store.present)[0]
+    c64 = torch.as_tensor(index.store.vectors[docs], dtype=torch.float64,
+                          device=dev)
+    gt = fp64_gt(torch, c64, (c64 * c64).sum(1), queries, K, dev)
+    del c64
+    return [[index.interner.key_of(int(docs[j])) for j in row] for row in gt]
+
+
+def ivf_corpus(torch, dev, n: int, n_queries: int, seed: int = 42):
+    """The SIFT-like recipe at ``n`` rows, made on the card: the centers as
+    sift_like draws them (numpy, ``seed``), then, for each chunk of
+    IVF_CHUNK rows, the cluster of each row and its N(0, 20^2) noise from a
+    torch.Generator seeded seed * 1000 + chunk, clipped to [0, 255] and
+    copied to the host; the queries likewise, from seed * 1000 + 999."""
+    rng = np.random.default_rng(seed)
+    centers = torch.as_tensor(
+        rng.standard_normal((N_CENTERS, D)).astype(np.float32) * 60 + 128,
+        device=dev)
+
+    def rows(m: int, gen_seed: int) -> np.ndarray:
+        gen = torch.Generator(device=dev).manual_seed(gen_seed)
+        a = torch.randint(0, N_CENTERS, (m,), generator=gen, device=dev)
+        noise = torch.randn((m, D), generator=gen, device=dev)
+        return (centers[a] + noise * 20).clamp_(0, 255).cpu().numpy()
+
+    corpus = np.empty((n, D), np.float32)
+    for c, s in enumerate(range(0, n, IVF_CHUNK)):
+        corpus[s:s + IVF_CHUNK] = rows(min(IVF_CHUNK, n - s), seed * 1000 + c)
+    return corpus, rows(n_queries, seed * 1000 + 999)
+
+
+def fp64_gt_rows(torch, corpus_t, queries, k: int, dev,
+                 rows: int = IVF_CHUNK, n_q: int = N_GT) -> np.ndarray:
+    """fp64 ground truth over a device corpus, ``n_q`` queries by ``rows``
+    rows at a time (a [256, 1M] fp64 block is 2 GiB)."""
+    out = []
+    for q0 in range(0, len(queries), n_q):
+        q = torch.as_tensor(queries[q0:q0 + n_q], dtype=torch.float64,
+                            device=dev)
+        best_d = best_i = None
+        for s in range(0, corpus_t.shape[0], rows):
+            c = corpus_t[s:s + rows].to(torch.float64)
+            dd = (c * c).sum(1)[None, :] - 2.0 * (q @ c.T)
+            d, i = torch.topk(dd, k, largest=False)
+            i = i + s
+            if best_d is not None:
+                d, pos = torch.topk(torch.cat([best_d, d], 1), k,
+                                    largest=False)
+                i = torch.cat([best_i, i], 1).gather(1, pos)
+            best_d, best_i = d, i
+        out.append(best_i.cpu().numpy())
+    return np.concatenate(out)
+
+
+def timed(torch, fn, reps: int = IVF_REPS):
+    """``fn``'s result (a warm-up call) and the host-clock seconds of
+    ``reps`` more calls, each synchronised."""
+    out = fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return out, times
+
+
+def qps_record(b: int, times, ids, gt) -> dict:
+    med = float(np.median(times))
+    return {"qps": b / med, "qps_min": b / max(times),
+            "qps_max": b / min(times), "ms": [t * 1e3 for t in times],
+            "recall": recall(ids[:len(gt)], gt[:len(ids)])}
+
+
+def ivf_phase(torch, bs, dev, gpu: str, stats: dict) -> None:
+    """(b) A FLAT index of N_IVF x 128 rows of the SIFT-like recipe
+    (ivf_corpus) through bulk_load, at the default search.ivf-threshold:
+    the first search builds the mirror on the card (build_ivf_device, its
+    stages timed); search_batch at B = 1,024 and 16,384 and probe 8, 16 and
+    32 (QPS the median of IVF_REPS, recall@10 on N_GT queries against fp64
+    ground truth, the stage-2 route of each); a torch.profiler split of one
+    B = 16,384 batch at the default probe, and IVF_PROFILED_CALLS B = 1,024
+    calls profiled one by one; the fused scan over the same
+    index at threshold 0 (K1b under int8, K2 under bfloat16); and the
+    host-fed build_ivf against build_ivf_device over the first N_IVF_HOST
+    rows, their recalls read on IVF_HOST_QUERIES queries."""
+    import gc
+
+    from valkey_search_tpu_torch.indexes.flat import FlatVectorIndex
+    from valkey_search_tpu_torch.ops import ivf as ivf_ops
+    from valkey_search_tpu_torch.runtime import config
+    from valkey_search_tpu_torch.runtime.metrics import STATS
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(int(config.get("search.ivf-threshold")) == IVF_DEFAULT_THRESHOLD,
+          "search.ivf-threshold is not its default")
+    t0 = time.perf_counter()
+    corpus, queries = ivf_corpus(torch, dev, N_IVF, max(IVF_BATCHES))
+    stats["data_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    index = FlatVectorIndex(dim=D, device=dev)
+    index.bulk_load([f"k{i}" for i in range(N_IVF)], corpus)
+    stats["bulk_load_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    snap = index.store.device_snapshot()
+    torch.cuda.synchronize()
+    stats["publish_s"] = time.perf_counter() - t0
+    log(f"IVF {N_IVF} x {D}: data {stats['data_s']:.1f} s, bulk_load "
+        f"{stats['bulk_load_s']:.1f} s, publish {stats['publish_s']:.1f} s "
+        f"(capacity {index.store.capacity})", gpu)
+
+    # the first search builds the mirror from the device mirror
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    before = ivf_counters(STATS)
+    index.search_batch(queries[:IVF_BATCHES[0]], K)
+    first_s = time.perf_counter() - t0
+    mirror = index._ivf
+    check(ivf_counters(STATS, before)["ivf_mirror_builds"] == 1,
+          "the 10M mirror was not built")
+    check("sample_fit_s" in index.ivf_build_seconds,
+          "the 10M mirror was not built by build_ivf_device")
+    probe0 = ivf_ops.default_probe(mirror)
+    stats["build"] = {**index.ivf_build_seconds, "first_search_s": first_s,
+                      "n_blocks": mirror.n_blocks,
+                      "device_gib": mirror.device_bytes() / 2**30,
+                      "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+                      "default_probe": probe0}
+    log(f"IVF {N_IVF} mirror: " + json.dumps(stats["build"]), gpu)
+
+    t0 = time.perf_counter()
+    gt = fp64_gt_rows(torch, snap["vectors"][:N_IVF], queries[:N_GT], K, dev)
+    log(f"IVF {N_IVF} ground truth ({N_GT} queries, fp64) "
+        f"{time.perf_counter() - t0:.1f} s", gpu)
+
+    sweep = {}
+    for probe in IVF_PROBES:
+        config.set_config("search.ivf-probe", probe)
+        for b in IVF_BATCHES:
+            before = ivf_counters(STATS)
+            (_, ids), times = timed(
+                torch, lambda: index.search_batch(queries[:b], K))
+            moved = ivf_counters(STATS, before)
+            route = ("grouped" if moved["ivf_stage2_grouped"]
+                     else "steps" if moved["ivf_stage2_steps"] else "none")
+            rec = {**qps_record(b, times, ids, gt), "route": route,
+                   "calls_by_route": [moved["ivf_stage2_grouped"],
+                                      moved["ivf_stage2_steps"]]}
+            sweep[f"probe={probe}/B={b}"] = rec
+            log(f"IVF {N_IVF} probe {probe} B={b}: " + json.dumps(rec), gpu)
+    config.set_config("search.ivf-probe", 0)
+    stats["sweep"] = sweep
+    for b in IVF_BATCHES:
+        r = sweep[f"probe={probe0}/B={b}"]["recall"]
+        check(r >= RECALL_FLOOR,
+              f"IVF {N_IVF} B={b} default probe {probe0}: recall {r}")
+    routes = {rec["route"] for rec in sweep.values()}
+    check(routes == {"grouped", "steps"},
+          f"IVF {N_IVF}: stage-2 routes exercised {routes}")
+
+    big = max(IVF_BATCHES)
+    stats["profile"] = _device_share(
+        torch, lambda: index.search_batch(queries[:big], K), ranges="ivf.")
+    log(f"IVF {N_IVF} B={big} probe {probe0} under torch.profiler: "
+        + json.dumps(stats["profile"]), gpu)
+    # the small batch's calls one by one: a slow call whose device time
+    # stays put is a host stall, not the route's own cost
+    small = min(IVF_BATCHES)
+    calls = [_device_share(torch, lambda: index.search_batch(queries[:small], K))
+             for _ in range(IVF_PROFILED_CALLS)]
+    stats["profile_small"] = {
+        key: [c[key] for c in calls] for key in ("wall_ms", "device_ms")}
+    log(f"IVF {N_IVF} B={small} probe {probe0}, {IVF_PROFILED_CALLS} calls "
+        "under torch.profiler: " + json.dumps(stats["profile_small"]), gpu)
+
+    # the same index served by the fused scan
+    scan = {}
+    config.set_config("search.ivf-threshold", 0)
+    try:
+        for dtype, kernel in (("int8", "bucket_scan_i8_packed[pre_shift>0]"),
+                              ("bfloat16", "bucket_scan_bf16")):
+            config.set_config("search.corpus-dtype", dtype)
+            index.search_batch(queries[:1], K)  # publish this dtype's mirror
+            bs.reset_launches()
+            for b in IVF_BATCHES:
+                (_, ids), times = timed(
+                    torch, lambda: index.search_batch(queries[:b], K))
+                scan[f"{dtype}/B={b}"] = qps_record(b, times, ids, gt)
+                log(f"scan {N_IVF} corpus-dtype={dtype} B={b}: "
+                    + json.dumps(scan[f"{dtype}/B={b}"]), gpu)
+            counts = bs.launch_counts()
+            check(counts[kernel] > 0, f"scan {N_IVF}: {kernel} not launched")
+            _merge_launches(stats["launches"], counts)
+    finally:
+        config.set_config("search.ivf-threshold", IVF_DEFAULT_THRESHOLD)
+        config.set_config("search.corpus-dtype", "bfloat16")
+    stats["scan"] = scan
+
+    # the host-fed build (the engine's when the mirror is dirty) against
+    # the device build over the same rows, at the same probe
+    sub = snap["vectors"][:N_IVF_HOST]
+    gt_sub = fp64_gt_rows(torch, sub, queries[:IVF_HOST_QUERIES], K, dev)
+    q_gt = torch.from_numpy(queries[:IVF_HOST_QUERIES]).to(dev)
+    builds = {}
+    for how in ("build_ivf", "build_ivf_device"):
+        t0 = time.perf_counter()
+        if how == "build_ivf":
+            sub_index = ivf_ops.build_ivf(corpus[:N_IVF_HOST], device=dev)
+        else:
+            sub_index = ivf_ops.build_ivf_device(sub)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        probe = ivf_ops.default_probe(sub_index)
+        _, ids = ivf_ops.ivf_search_rescored(sub_index, q_gt, sub, k=K,
+                                             probe=probe)
+        _, coarse = ivf_ops.ivf_search_batch(sub_index, q_gt, k=K,
+                                             probe=probe)
+        builds[how] = {"build_s": build_s, "n_blocks": sub_index.n_blocks,
+                       "probe": probe,
+                       "recall": recall(ids.cpu().numpy(), gt_sub),
+                       "coarse_recall": recall(coarse.cpu().numpy(), gt_sub)}
+        del sub_index
+    stats["host_build"] = builds
+    log(f"IVF {N_IVF_HOST} rows, host-fed against device build (recall on "
+        f"{IVF_HOST_QUERIES} queries): " + json.dumps(builds), gpu)
+    gap = builds["build_ivf"]["recall"] - builds["build_ivf_device"]["recall"]
+    check(builds["build_ivf"]["probe"] == builds["build_ivf_device"]["probe"]
+          and abs(gap) <= IVF_HOST_TOLERANCE,
+          f"build_ivf recall {gap:+.4f} from build_ivf_device's")
+    del index, snap, sub, mirror
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1115,6 +1520,14 @@ def main() -> int:
     log("hnsw stats " + json.dumps(hnsw), gpu)
     _merge_launches(stats["launches"], hnsw["launches"])
 
+    t0 = time.perf_counter()
+    ivf = {"launches": {}}
+    ivf_phase(torch, bs, dev, gpu, ivf)
+    ivf["wall_s"] = time.perf_counter() - t0
+    log(f"ivf phase {ivf['wall_s']:.1f} s", gpu)
+    log("ivf stats " + json.dumps(ivf), gpu)
+    _merge_launches(stats["launches"], ivf["launches"])
+
     replaces = {
         "bucket_scan_i8_packed[pre_shift=0]":
             ("valkey_search_tpu_torch/csrc/bucket_scan_i8_packed.cu",
@@ -1150,5 +1563,7 @@ if __name__ == "__main__":
     try:
         sys.exit(main())
     except SmokeFailure as exc:
+        # on both streams: a caller that keeps only one still sees why
         print(f"FAIL: {exc}", flush=True)
+        print(f"FAIL: {exc}", file=sys.stderr, flush=True)
         sys.exit(1)

@@ -14,6 +14,7 @@ import torch
 from valkey_search_tpu_torch.indexes.flat import FlatVectorIndex
 from valkey_search_tpu_torch.indexes.hnsw import HnswVectorIndex
 from valkey_search_tpu_torch.ops import bucket_scan as bs
+from valkey_search_tpu_torch.ops import ivf
 from valkey_search_tpu_torch.ops import topk
 from valkey_search_tpu_torch.runtime import config
 from valkey_search_tpu_torch.runtime.device import set_device
@@ -352,3 +353,88 @@ def test_hnsw_short_filter_mask_does_not_assert(dev):
             _, ids = index.search_batch(q, 10, ef=40, filter_mask=short)
             torch.cuda.synchronize()
             assert (ids >= 0).all() and (ids < n // 2).all()
+
+
+def _clustered(rng, n, d, centers=16, spread=0.08):
+    c = rng.normal(size=(centers, d)).astype(np.float32)
+    a = rng.integers(0, centers, size=n)
+    return (c[a] + spread * rng.normal(size=(n, d))).astype(np.float32)
+
+
+def _ivf_on(index, device):
+    return ivf.IvfIndex(*(t.to(device) for t in index))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["grouped", "steps"])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_ivf_search_on_the_card_matches_the_cpu(dev, route, metric):
+    """One IVF index built on the CPU and carried to the card: both stage-2
+    routes give the CPU's ids on >= 99% of the rows, distances within 1e-5
+    of the terms they are summed from, and stay inside a 1-D mask."""
+    rng = np.random.default_rng(11)
+    x = _clustered(rng, 8192, 32)
+    if metric == "ip":
+        x /= np.linalg.norm(x, axis=1, keepdims=True)
+    cpu = ivf.build_ivf(x, block_rows=128, n_clusters=8, train_sample=4096,
+                        device=torch.device("cpu"))
+    card = _ivf_on(cpu, dev)
+    q = x[rng.integers(0, len(x), 192)] + 0.03 * rng.normal(
+        size=(192, 32)).astype(np.float32)
+    mask = np.arange(len(x)) % 3 != 0
+    search = getattr(ivf, f"_ivf_search_batch_{route}")
+    kw = dict(k=10, probe=8, metric=metric)
+    if route == "steps":
+        kw["probe_chunk"] = 3
+    for m in (None, mask):
+        wd, wi = search(cpu, torch.from_numpy(q), filter_mask=None if m is None
+                        else torch.from_numpy(m), **kw)
+        gd, gi = search(card, torch.from_numpy(q).to(dev),
+                        filter_mask=None if m is None
+                        else torch.from_numpy(m).to(dev), **kw)
+        gd, gi, wd, wi = (a.cpu().numpy() for a in (gd, gi, wd, wi))
+        assert (gi == wi).all(1).mean() >= 0.99
+        same = (gi == wi) & (wi >= 0)
+        scale = ((q * q).sum(1)[:, None] + (x * x).sum(1)[np.maximum(wi, 0)]
+                 if metric == "l2" else np.ones_like(wd))
+        assert (np.abs(gd - wd)[same] <= 1e-5 * scale[same]).all()
+        if m is not None:
+            assert m[gi[gi >= 0]].all()
+
+
+@pytest.mark.cuda
+def test_ivf_build_and_engine_route_on_the_card(dev):
+    """A FLAT index on the card over search.ivf-threshold: the first search
+    builds the mirror with build_ivf_device, the rescored route serves it,
+    a deleted row never comes back and an update comes first through the
+    delta overlay, without a rebuild."""
+    from valkey_search_tpu_torch.runtime.metrics import STATS
+
+    rng = np.random.default_rng(12)
+    n, d = 20_000, 32
+    x = _clustered(rng, n, d, centers=64)
+    index = FlatVectorIndex(dim=d, device=dev)
+    index.bulk_load([f"k{i}" for i in range(n)], x)
+    q = x[rng.integers(0, n, 256)] + 0.03 * rng.normal(
+        size=(256, d)).astype(np.float32)
+    with _Options(ivf_threshold=10_000, ivf_block_rows=128):
+        builds = STATS.get("ivf_mirror_builds")
+        served = STATS.get("ivf_served_searches")
+        bs.reset_launches()
+        _, ids = index.search_batch(q, 10)
+        assert STATS.get("ivf_mirror_builds") - builds == 1
+        assert STATS.get("ivf_served_searches") - served == len(q)
+        assert sum(bs.launch_counts().values()) == 0
+        dist = ((x[None, :, :] - q[:, None, :]) ** 2).sum(-1)
+        want = np.argsort(dist, axis=1)[:, :10]
+        assert np.mean([len(set(ids[i]) & set(want[i])) / 10
+                        for i in range(len(q))]) >= 0.95
+        gone = [int(i) for i in ids[:4, 0]]
+        for doc in gone:
+            index.remove_record(f"k{doc}")
+        index.add_record("k7", q[5])
+        d2, ids2 = index.search_batch(q, 10)
+        assert not np.isin(ids2, gone).any()
+        assert index.interner.key_of(int(ids2[5, 0])) == "k7"
+        assert abs(d2[5, 0]) <= 1e-5 * float(q[5] @ q[5])
+        assert STATS.get("ivf_mirror_builds") - builds == 1

@@ -3,15 +3,17 @@
 Counterpart of valkey_search_tpu/indexes/flat.py. ``search_batch`` routes a
 query batch the way the JAX package does:
 
+- an unfiltered batch over an index of ``search.ivf-threshold`` rows or more
+  (3,000,000 by default; 0 disables): the IVF mirror (``ivf_mirror``,
+  ``ops/ivf.py``), rescored in fp32, with the rows written since its build
+  merged in exactly; a filtered batch takes the scan, since block probing
+  cannot see the filter;
 - ``search.topk-mode approx`` with a bf16 or int8 mirror and a corpus the
   fused scan serves (``ops.topk.use_fused_scan``): ``flat_topk_fused``, i.e.
   the hand-written coarse scan K1 (int8) or K2 (bf16), an exact survivor
   top-k and the fp32 rescore;
 - ``approx`` with a bf16 mirror otherwise: ``flat_topk_two_stage``;
 - else the blocked exact scan ``flat_topk``.
-
-The JAX package sends unfiltered searches over ``search.ivf-threshold`` rows
-to its IVF mirror; IVF is not ported yet, so here the scan serves them.
 """
 
 from __future__ import annotations
@@ -83,7 +85,15 @@ class FlatVectorIndex(VectorIndexBase):
         mode = str(config.get("search.topk-mode"))
         q = torch.from_numpy(queries).to(self.store.device)
         corpus = snap["vectors"]
-        if filter_mask is not None:
+        if filter_mask is None:
+            mirror = self.ivf_mirror()
+            if mirror is not None:
+                d, i = self._ivf_search(mirror, q, k, corpus,
+                                        snap["invalid"])
+                STATS.incr("flat_searches", queries.shape[0])
+                STATS.incr("ivf_served_searches", queries.shape[0])
+                return d.cpu().numpy(), i.cpu().numpy()
+        else:
             filter_mask = _fit_mask(filter_mask, corpus.shape[0])
         common = dict(k=k, metric=self.metric, corpus_sq=snap["norms_sq"],
                       invalid=snap["invalid"], filter_mask=filter_mask)

@@ -19,8 +19,9 @@ src/indexes/vector_hnsw.{h,cc} over modified hnswlib):
 
 ``search.hnsw-build-mode auto`` builds on the device when the store lies on
 a CUDA device, on the host otherwise. A failed device build raises; it never
-falls back to the host build. The JAX package's IVF branch of
-``exact_search_batch`` is not ported: the scan serves every size.
+falls back to the host build. Over ``search.ivf-threshold`` live keys an
+unfiltered ``exact_search_batch`` goes to the IVF mirror of the store's rows
+(nodes), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -562,17 +563,27 @@ class HnswVectorIndex(VectorIndexBase):
         The doc-space mask becomes a node-space mask on the device and
         folds into the scan: ``flat_topk_fused`` (K1 under int8, K2 under
         bfloat16) from 131,072 rows of capacity, ``flat_topk_two_stage``
-        or ``flat_topk`` below. ``ef`` has no effect on an exact scan."""
+        or ``flat_topk`` below; ``ef`` has no effect on an exact scan.
+        Unfiltered, over ``search.ivf-threshold`` live keys, the IVF mirror
+        serves instead: tombstones ride ~invalid, and EF_RUNTIME, a
+        candidate count, raises the probe to ceil(ef / block_rows)."""
         queries = self._prepare(queries)
         graph = self.device_graph()
         snap = self.store.device_snapshot()
         node_doc = graph.node_doc
         invalid = graph.deleted | (node_doc < 0)
+        corpus = snap["vectors"]
+        q = torch.from_numpy(queries).to(corpus.device)
         node_filter = None
         if filter_mask is not None:
             node_filter = hs_ops.docs_allowed(filter_mask, node_doc)
-        corpus = snap["vectors"]
-        q = torch.from_numpy(queries).to(corpus.device)
+        else:
+            mirror = self.ivf_mirror()
+            if mirror is not None:
+                d, nodes = self._ivf_search(mirror, q, k, corpus, invalid,
+                                            ef=ef)
+                STATS.incr("ivf_served_searches", queries.shape[0])
+                return d.cpu().numpy(), self._docs_of(nodes.cpu().numpy())
         block_rows = max(self.store.capacity, 131072)
         common = dict(k=k, metric=self.metric, corpus_sq=snap["norms_sq"],
                       invalid=invalid, filter_mask=node_filter)

@@ -10,13 +10,18 @@ snapshot sees one consistent state, as in the JAX package.
 
 Mirror keys: ``vectors`` fp32 [cap, d], ``norms_sq`` fp32 [cap], ``invalid``
 bool [cap], plus ``vectors_lp`` bf16 under ``search.corpus-dtype bfloat16``
-or ``vectors_i8`` int8 with its f32 scalar ``i8_scale`` under ``int8``. The
-IVF mirror of the JAX package is not ported yet.
+or ``vectors_i8`` int8 with its f32 scalar ``i8_scale`` under ``int8``.
+
+Over ``search.ivf-threshold`` rows an index also keeps an IVF mirror
+(``VectorIndexBase.ivf_mirror``, ``ops/ivf.py``), rebuilt only once mutation
+drift is material; the rows written since its build (``ivf_delta_ids``) are
+scored exactly beside it.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -26,6 +31,7 @@ from valkey_search_tpu_torch.runtime import config
 from valkey_search_tpu_torch.runtime.metrics import STATS
 from valkey_search_tpu_torch.utils.interning import KeyInterner
 from valkey_search_tpu_torch.indexes.base import IndexBase, RecordResult
+from valkey_search_tpu_torch.ops import ivf as ivf_ops
 from valkey_search_tpu_torch.runtime.device import get_device
 
 VectorLike = Union[bytes, bytearray, memoryview, np.ndarray, Sequence[float]]
@@ -102,6 +108,10 @@ class HostVectorStore:
         self._device: Optional[Dict[str, torch.Tensor]] = None
         self._lock = threading.RLock()
         self.epoch = 0  # bumped on every publish
+        self.mutations = 0  # lifetime row writes and clears (IVF drift)
+        # rows written since the last IVF mirror build: the delta overlay
+        # scores exactly these
+        self.ivf_written_since: set = set()
 
     @property
     def capacity(self) -> int:
@@ -140,6 +150,8 @@ class HostVectorStore:
             self.norms_sq[doc] = float(np.dot(vec, vec))
             self.present[doc] = True
             self._dirty.add(doc)
+            self.mutations += 1
+            self.ivf_written_since.add(doc)
 
     def clear_row(self, doc: int) -> None:
         with self._lock:
@@ -149,6 +161,8 @@ class HostVectorStore:
                 self.norms_sq[doc] = 0
                 self.magnitudes[doc] = 0
                 self._dirty.add(doc)
+                self.mutations += 1
+                self.ivf_written_since.add(doc)
 
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(arr).to(self.device, copy=True)
@@ -264,9 +278,140 @@ class VectorIndexBase(IndexBase):
         self.store = HostVectorStore(dim, metric, block, device, growth)
         self._tracked: Dict[str, int] = {}
         self._lock = threading.RLock()
+        self._ivf = None  # drift-throttled IVF mirror (ops/ivf.py)
+        self._ivf_epoch = -1
+        self._ivf_muts = -1  # store.mutations at build time
+        self._ivf_building = threading.Lock()
+        # seconds of the last mirror build: build_s, and by stage
+        # (build_ivf_device's timings) when it read the device mirror
+        self.ivf_build_seconds: Dict[str, float] = {}
 
     def memory_bytes(self) -> int:
         return self.store.memory_bytes() + 72 * len(self._tracked)
+
+    # -- IVF mirror (large-corpus sub-linear path) --------------------------
+    def ivf_mirror(self):
+        """The IVF index over the present rows, or None below
+        search.ivf-threshold (0 disables).
+
+        A build is k-means, reorder and quantize over the whole corpus, so
+        it neither runs per publish nor holds the index lock. The mirror
+        rebuilds only once the mutations since the last build pass
+        max(16384, n // 20); in between the stale mirror serves, with
+        deletions masked by the caller's ~invalid and the rows written since
+        the build (``ivf_delta_ids``) scored exactly beside it. One thread
+        builds at a time; concurrent searches keep the stale mirror (the
+        first build blocks them until it lands), and a thread that takes
+        the builder's turn after a build landed serves that build (the JAX
+        package's check-then-acquire could build twice). The build reads the
+        published device mirror when it is current (``build_ivf_device``),
+        the host rows otherwise (``build_ivf``)."""
+        thresh = int(config.get("search.ivf-threshold"))
+        n = self.count()
+        if thresh == 0 or n < thresh:
+            return None
+        with self._lock:
+            current = self._ivf_current(n)
+        if current is not None:
+            return current
+        if not self._ivf_building.acquire(blocking=False):
+            if self._ivf is not None:
+                return self._ivf
+            with self._ivf_building:
+                return self._ivf
+        try:
+            with self._lock:
+                current = self._ivf_current(n)
+                if current is not None:
+                    return current
+                st = self.store
+                docs = np.nonzero(st.present)[0]
+                epoch = st.epoch
+                muts = st.mutations
+                dev = st._device
+                dev_fresh = (dev is not None and "vectors" in dev
+                             and not st._dirty)
+                if dev_fresh:
+                    present = st.present.copy()
+                else:
+                    vecs = st.vectors[docs].copy()
+                # the new mirror holds every row up to this copy; writes
+                # during the unlocked build enter the delta set again
+                st.ivf_written_since = set()
+            block_rows = int(config.get("search.ivf-block-rows"))
+            n_clusters = int(config.get("search.ivf-clusters"))
+            timings: Dict[str, float] = {}
+            t0 = time.perf_counter()
+            if dev_fresh:
+                new = ivf_ops.build_ivf_device(
+                    dev["vectors"], present=present, block_rows=block_rows,
+                    n_clusters=n_clusters, timings=timings)
+            else:
+                new = ivf_ops.build_ivf(
+                    vecs, docs.astype(np.int64), block_rows=block_rows,
+                    n_clusters=n_clusters, device=st.device)
+            timings["build_s"] = time.perf_counter() - t0
+            with self._lock:
+                self._ivf = new
+                self._ivf_epoch = epoch
+                self._ivf_muts = muts
+                self.ivf_build_seconds = timings
+            STATS.incr("ivf_mirror_builds")
+            return new
+        finally:
+            self._ivf_building.release()
+
+    def _ivf_current(self, n: int):
+        """The mirror when it may serve: built at the store's epoch (settled
+        by a publish), or within the drift bound of its mutations; else
+        None. The caller holds ``self._lock``."""
+        self.store.device_snapshot()  # settle the epoch
+        if self._ivf is None:
+            return None
+        if self._ivf_epoch == self.store.epoch:
+            return self._ivf
+        if self.store.mutations - self._ivf_muts <= max(16384, n // 20):
+            return self._ivf
+        return None
+
+    def ivf_delta_ids(self) -> np.ndarray:
+        """Rows written since the last mirror build (int64). The JAX package
+        pads them to a power of two, for its compiled shapes; the port does
+        not."""
+        with self.store._lock:
+            return np.fromiter(self.store.ivf_written_since, np.int64,
+                               len(self.store.ivf_written_since))
+
+    def _ivf_search(self, mirror, q: torch.Tensor, k: int,
+                    corpus: torch.Tensor, invalid: torch.Tensor,
+                    ef: Optional[int] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """An unfiltered search over the IVF mirror: the mirror serves every
+        row outside ``invalid`` and the delta set, rescored in fp32 against
+        ``corpus`` (the current snapshot's rows); the delta rows are scored
+        exactly and merged in. Cosine runs as "ip" over the normalized rows.
+        The probe is search.ivf-probe, or ``default_probe`` when that is 0;
+        HNSW's EF_RUNTIME ``ef``, a candidate count, raises it to
+        ceil(ef / block_rows). Returns (dists, store rows) on the device."""
+        probe = (int(config.get("search.ivf-probe"))
+                 or ivf_ops.default_probe(mirror))
+        if ef:
+            probe = max(probe, -(-int(ef) // mirror.block_rows))
+        metric = "ip" if self.metric == "cosine" else self.metric
+        delta = self.ivf_delta_ids()
+        delta = delta[delta < corpus.shape[0]]
+        mask = ~invalid
+        if len(delta):
+            delta_t = torch.from_numpy(delta).to(corpus.device)
+            mask = mask.clone()
+            mask[delta_t] = False
+        d, i = ivf_ops.ivf_search_rescored(mirror, q, corpus, k=k,
+                                           probe=probe, metric=metric,
+                                           filter_mask=mask)
+        if len(delta):
+            d, i = ivf_ops.delta_overlay_merge(q, corpus, delta_t, invalid,
+                                               d, i, k=k, metric=metric)
+        return d, i
 
     # -- IndexBase ----------------------------------------------------------
     def add_record(self, key: str, value: VectorLike) -> RecordResult:
@@ -313,6 +458,33 @@ class VectorIndexBase(IndexBase):
     def doc_of(self, key: str) -> Optional[int]:
         with self._lock:
             return self._tracked.get(key)
+
+    def bulk_load(self, keys: Sequence[str], vectors: np.ndarray) -> int:
+        """Batch ingest: the whole batch lands with numpy writes and one
+        full upload at the next publish."""
+        vectors = np.ascontiguousarray(vectors, np.float32)
+        if vectors.shape[1] != self.dim:
+            raise ValueError("bulk_load dim mismatch")
+        with self._lock:
+            doc_list = self.interner.intern_many(keys)
+            docs = np.asarray(doc_list, np.int64)
+            self.store.ensure_capacity(int(docs.max()) + 1)
+            st = self.store
+            vecs = vectors
+            if self.metric == "cosine":
+                mags = np.linalg.norm(vectors, axis=1)
+                st.magnitudes[docs] = mags
+                vecs = vectors / np.maximum(mags, 1e-30)[:, None]
+            st.vectors[docs] = vecs
+            # einsum: no [n, d] squared temporary
+            st.norms_sq[docs] = np.einsum("ij,ij->i", vecs, vecs)
+            st.present[docs] = True
+            st.mutations += len(docs)
+            st.ivf_written_since.update(doc_list)
+            st._device = None  # full upload at the next publish
+            self._tracked.update(zip(keys, doc_list))
+            STATS.incr("vector_records_added", len(keys))
+            return len(keys)
 
     def neighbors_to_keys(
         self, dists: np.ndarray, ids: np.ndarray
