@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Build the PyTorch/CUDA port's kernels and drive its FT.SEARCH path on one GPU.
+"""Build the PyTorch/CUDA port's kernels and drive its FT.SEARCH and
+FT.AGGREGATE paths on one GPU.
 
 Run from the root of a checkout, on a machine with an NVIDIA H100:
 
@@ -41,6 +42,25 @@ Phases (each failure exits non-zero; there is no CPU path):
               search_batch QPS; and where a hybrid request's time goes
               (profile_hybrid: 1 against 16 threads, the GIL switch
               interval, torch.profiler's device time per request);
+   Inside it, before the DELs, the aggregate phase on the same 1M index
+   (aggregate_phase; under int8 at the default span, K1 at pre_shift > 0,
+   where KNN 100 holds recall ~0.95, at search.scan-span 1, K1 at
+   pre_shift 0, and under bfloat16, K2):
+   FT.AGGREGATE over KNN 100 with LOAD, GROUPBY (COUNT, AVG) and SORTBY, 256
+   queries from 16 threads: group counts and averages equal to numpy's over
+   the fp64 top 100 wherever the port's top 100 is that set, recall of the
+   100 >= 0.99 (0.94 under int8 at span 8, which runs unfiltered alone);
+   the same behind the ~1% tag and ~10% price filters with APPLY and
+   FILTER stages (no row outside the filter); the columnar
+   GROUPBY over ~100,000 rows against np.unique (no scan launch), then the
+   same request by the per-row route while HSETs land, and each route
+   timed; asynchronous ingestion of 100,000 rows (Engine(sync_ingest=False),
+   4 writers, drain(); FT.CREATE after the data and cron() until the
+   backfill ends) against a synchronous engine, KNN 10 keys equal, HSETs
+   per second of each; PEXPIRE on 100 returned keys (none returns from KNN
+   or FT.AGGREGATE, before or after cron()), HDEL of a vector field, a
+   multi() of 10 HSETs seen whole; INFO's reference field names and moved
+   counters; FT._DEBUG PROFILE around one KNN batch (a non-empty trace).
    Then (a) of the ivf phase on the 1M index (ivf_engine_route);
 5. hnsw     - (a) FT.CREATE ... VECTOR HNSW (M 16, EF_CONSTRUCTION 200) +
               cat TAG and 100,000 HSETs (native inserts): FT.SEARCH KNN 10
@@ -48,8 +68,10 @@ Phases (each failure exits non-zero; there is no CPU path):
               capacity 131,072: K1 at pre_shift 0, and K2), hybrid, DEL and
               update; then search.hnsw-scan-threshold 0: the AoS walk, the
               filtered SoA walk (inline) and the pre-filtered exact scan,
-              each checked by its counters. (b) HnswVectorIndex.bulk_load of
-              1,000,000 rows under build-mode device (candidate scan, prune,
+              each checked by its counters (the inline-filtered walk on 32
+              queries: such a request walks alone). (b)
+              HnswVectorIndex.bulk_load of 500,000 rows under build-mode
+              device (candidate scan, prune,
               native bulk_build, bridging and publish timed); search_batch
               at B = 1,024 on the scan route (K1 at pre_shift > 0, K2) and
               the walk at ef 10, 50 and 100 beside the native walk over the
@@ -85,8 +107,11 @@ them; the line before it the kernels' JSON record; the last line the result.
 from __future__ import annotations
 
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -129,11 +154,12 @@ LIBRARY_BATCHES = (256, 1024)
 # the HNSW phase: the engine's index (pow2 capacity 131,072), the full-width
 # index, the batch and ef values of its searches, the native walk's queries
 N_HNSW = 100_000
-N_HNSW_BIG = 1_000_000
+N_HNSW_BIG = 500_000
 HNSW_B = 1024
 HNSW_EF = 100
 HNSW_EFS = (10, 50, 100)
 N_NATIVE = 200
+N_SOA = 32  # queries of the engine's inline-filtered (SoA) walk
 # iterations between the walk's reads of its done flags, timed in turns
 CHECK_EVERY_CASES = (1, 2, 4, 8, 16)
 # the engine's walk routes are reported; this floor only catches breakage
@@ -163,6 +189,67 @@ IVF_HOST_TOLERANCE = 0.01
 # differ by a few thousandths of recall, and 256 queries read a gap to about
 # +-0.004 alone
 IVF_HOST_QUERIES = 16_384
+# the aggregate phase: neighbours a request aggregates and its queries; the
+# rows and writers of the asynchronous ingestion; the keys given a TTL (ms);
+# INFO fields in the reference's spelling (valkey_search.cc:93-1006) that
+# the port must report, those this phase moves among them
+AGG_K = 100
+AGG_QUERIES = 256
+# (corpus-dtype, search.scan-span, the kernel that serves, recall floor):
+# under int8 at 1M rows the scan keeps one survivor per 1,024 rows (span 8,
+# 1,024 columns), so of 100 true neighbours the j-th is lost where a nearer
+# one shares its column, (j - 1) / 1,024 each, 4.8 in all: 0.95 expected,
+# at KNN 100 as in the JAX package. search.scan-span 1 (8,192 columns, as
+# bfloat16 has) is the setting for requests that wide, and holds the floor
+AGG_CASES = (("int8", 0, "bucket_scan_i8_packed[pre_shift>0]", 0.94),
+             ("int8", 1, "bucket_scan_i8_packed[pre_shift=0]", RECALL_FLOOR),
+             ("bfloat16", 0, "bucket_scan_bf16", RECALL_FLOOR))
+N_ASYNC = 100_000
+ASYNC_WRITERS = 4
+N_EXPIRE = 100
+EXPIRE_MS = 200
+INFO_FIELDS = (
+    "search_query_queue_size", "search_writer_queue_size",
+    "search_worker_pool_suspend_cnt", "search_writer_resumed_cnt",
+    "search_reader_resumed_cnt", "search_writer_suspension_expired_cnt",
+    "search_rdb_load_success_cnt", "search_rdb_load_failure_cnt",
+    "search_rdb_save_success_cnt", "search_rdb_save_failure_cnt",
+    "search_successful_requests_count", "search_failure_requests_count",
+    "search_hybrid_requests_count", "search_inline_filtering_requests_count",
+    "search_hnsw_add_exceptions_count", "search_hnsw_remove_exceptions_count",
+    "search_hnsw_modify_exceptions_count",
+    "search_hnsw_search_exceptions_count",
+    "search_hnsw_create_exceptions_count",
+    "search_string_interning_store_size",
+    "search_vector_externing_entry_count",
+    "search_vector_externing_hash_extern_errors",
+    "search_vector_externing_generated_value_cnt",
+    "search_vector_externing_num_lru_entries",
+    "search_vector_externing_lru_promote_cnt",
+    "search_vector_externing_deferred_entry_cnt",
+    "search_number_of_attributes", "search_number_of_indexes",
+    "search_total_indexed_documents", "search_total_active_write_threads",
+    "search_used_memory_bytes", "search_index_reclaimable_memory",
+    "search_used_read_cpu", "search_used_write_cpu",
+    "search_background_indexing_status", "search_used_memory_human",
+    "search_queries_total", "search_vector_queries",
+    "search_nonvector_queries", "search_hybrid_queries_prefilter",
+    "search_aggregate_queries", "search_aggregate_errors",
+    "search_mutations_enqueued", "search_mutations_applied",
+    "search_backfilled_records", "search_keyspace_keys",
+    "search_mutation_queue_size", "search_used_vector_bytes",
+    "search_memory_pool_vector_bytes", "search_memory_pool_tag_bytes",
+    "search_memory_pool_numeric_bytes", "search_memory_pool_keyspace_bytes",
+    "search_process_rss_bytes", "search_heap_allocated_bytes",
+    "search_agg_input_records", "search_agg_output_records",
+    "search_agg_group_by_stages", "search_agg_apply_stages",
+    "search_agg_filter_stages", "search_agg_sort_by_stages",
+    "search_thread_pool_cpu_percent",
+)
+INFO_MOVED = ("search_queries_total", "search_vector_queries",
+              "search_aggregate_queries", "search_agg_group_by_stages",
+              "search_agg_apply_stages", "search_agg_filter_stages",
+              "search_agg_input_records")
 IVF_COUNTERS = ("ivf_mirror_builds", "ivf_served_searches",
                 "ivf_stage2_grouped", "ivf_stage2_steps")
 
@@ -187,8 +274,15 @@ def card() -> str:
     return proc.stdout.strip().splitlines()[0]
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg: str, gpu: str = "") -> None:
-    print(f"[{gpu}] {msg}" if gpu else msg, flush=True)
+    """One line, after the card's name and limit and the seconds since the
+    script began."""
+    stamp = f"{time.perf_counter() - _T0:.0f}s"
+    print(f"[{gpu}; {stamp}] {msg}" if gpu else f"[{stamp}] {msg}",
+          flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -710,6 +804,493 @@ def hybrid_mutations(engine, corpus, queries, gpu: str) -> None:
         check(not back_del, f"deleted {gone} returned ({dtype})")
 
 
+# ---------------------------------------------------------------------------
+# the aggregate phase: FT.AGGREGATE, asynchronous ingestion, the keyspace
+# surface and the observability commands, on the slice's 1M index
+# ---------------------------------------------------------------------------
+
+
+def execute_all(engine, argvs):
+    """Send every argv through Engine.execute from THREADS threads; returns
+    (the replies, per-request latencies in s, the wall time in s)."""
+    n = len(argvs)
+    replies = [None] * n
+    lat = [0.0] * n
+    errors = []
+
+    def worker(tid: int) -> None:
+        try:
+            for i in range(tid, n, THREADS):
+                t0 = time.perf_counter()
+                replies[i] = engine.execute(*argvs[i])
+                lat[i] = time.perf_counter() - t0
+        except Exception as exc:  # reported below; the phase fails
+            errors.append(repr(exc))
+
+    threads = [threading.Thread(target=worker, args=(t,))
+               for t in range(THREADS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    wall = time.perf_counter() - t0
+    check(not any(t.is_alive() for t in threads), "request threads hung")
+    check(not errors, f"requests failed: {errors[:3]}")
+    return replies, np.asarray(lat), wall
+
+
+def rows_of(reply) -> list:
+    """An FT.AGGREGATE reply's rows as dicts."""
+    return [dict(zip(row[::2], row[1::2])) for row in reply[1:]]
+
+
+def check_groups(reply, ids: np.ndarray, cats, prices, what: str) -> None:
+    """``reply`` of ... GROUPBY @cat REDUCE COUNT AS n, AVG @price AS p,
+    SORTBY @n DESC (the 10 largest groups) against numpy over rows ``ids``."""
+    want = {}
+    for c in np.unique(cats[ids]):
+        sel = ids[cats[ids] == c]
+        want[f"c{c}"] = (len(sel), float(prices[sel].mean()))
+    rows = rows_of(reply)
+    counts = [float(r["n"]) for r in rows]
+    check(reply[0] == len(rows) == min(10, len(want)),
+          f"{what}: {len(rows)} groups of {len(want)}")
+    check(counts == sorted(counts, reverse=True), f"{what}: not sorted by n")
+    largest = sorted((n for n, _ in want.values()), reverse=True)[:len(rows)]
+    check(counts == [float(n) for n in largest],
+          f"{what}: counts {counts} are not the largest {largest}")
+    for r in rows:
+        n, p = want.get(r["cat"], (None, None))
+        check(n is not None and float(r["n"]) == n
+              and abs(float(r["p"]) - p) <= 1e-12 * max(1.0, abs(p)),
+              f"{what}: group {r} against numpy's {(n, p)}")
+
+
+def aggregate_knn(bs, engine, queries, cats, prices, agg_filters, gt_agg,
+                  launches: dict, gpu: str) -> dict:
+    """FT.AGGREGATE over KNN AGG_K, unfiltered and behind each filter, under
+    each of AGG_CASES, AGG_QUERIES requests from THREADS threads each."""
+    out = {}
+    qs = queries[:AGG_QUERIES]
+
+    def params(q):
+        return ("PARAMS", "2", "q", q.tobytes())
+
+    for dtype, scan_span, kernel, floor in AGG_CASES:
+        engine.config_set("search.corpus-dtype", dtype)
+        engine.config_set("search.scan-span", str(scan_span))
+        for (flt, allowed), gt in zip(agg_filters, gt_agg):
+            if floor < RECALL_FLOOR and allowed is not None:
+                continue  # the case below the floor: unfiltered alone
+            query = knn(flt, AGG_K)
+            # the port's own top AGG_K, by FT.SEARCH (also publishes the
+            # mirror for this dtype before the counted run)
+            found, _, _ = execute_all(engine, [
+                ("FT.SEARCH", "idx", query, *params(q), "NOCONTENT", "LIMIT",
+                 "0", str(AGG_K)) for q in qs])
+            ids = [np.array([int(k[len("doc:"):]) for k in r[1:]], np.int64)
+                   for r in found]
+            r = float(np.mean([len(set(ids[i]) & set(gt[i])) / AGG_K
+                               for i in range(len(qs))]))
+            if allowed is None:
+                stages = ("LOAD", "2", "@cat", "@price", "GROUPBY", "1",
+                          "@cat", "REDUCE", "COUNT", "0", "AS", "n", "REDUCE",
+                          "AVG", "1", "@price", "AS", "p", "SORTBY", "2",
+                          "@n", "DESC")
+            else:
+                stages = ("LOAD", "3", "@__key", "@cat", "@price", "APPLY",
+                          "@price * 2", "AS", "p2", "FILTER", "@price < 50")
+            bs.reset_launches()
+            replies, lat, wall = execute_all(engine, [
+                ("FT.AGGREGATE", "idx", query, *params(q), *stages)
+                for q in qs])
+            counts = bs.launch_counts()
+            check(counts[kernel] > 0,
+                  f"FT.AGGREGATE {flt} ({dtype}): {kernel} never launched")
+            _merge_launches(launches, {kernel: counts[kernel]})
+            exact = outside = 0
+            for i, reply in enumerate(replies):
+                same = set(ids[i]) == set(gt[i])
+                exact += same
+                what = f"FT.AGGREGATE {flt} ({dtype}) query {i}"
+                if allowed is None:
+                    if same:
+                        check_groups(reply, gt[i], cats, prices, what)
+                    continue
+                rows = rows_of(reply)
+                docs = np.array([int(r["__key"][len("doc:"):]) for r in rows],
+                                np.int64)
+                outside += int((~allowed[docs]).sum())
+                check(all(float(r["price"]) < 50
+                          and float(r["p2"]) == 2 * float(r["price"])
+                          and float(r["price"]) == prices[d]
+                          and r["cat"] == f"c{cats[d]}"
+                          for r, d in zip(rows, docs)),
+                      f"{what}: APPLY / FILTER rows wrong")
+                check(set(docs) <= set(ids[i]), f"{what}: rows outside the "
+                      "request's own KNN")
+                if same:
+                    kept = gt[i][prices[gt[i]] < 50]
+                    check(reply[0] == len(kept) and set(docs) == set(kept),
+                          f"{what}: {reply[0]} rows, numpy {len(kept)}")
+            rec = {"recall": r, "exact_sets": int(exact), "outside": outside,
+                   "rps": len(qs) / wall,
+                   "p50_ms": float(np.percentile(lat, 50)) * 1e3,
+                   "p99_ms": float(np.percentile(lat, 99)) * 1e3,
+                   "launches": {kernel: counts[kernel]}}
+            out[f"{dtype}/span={scan_span}/{flt}"] = rec
+            log(f"FT.AGGREGATE idx {query!r} corpus-dtype={dtype} scan-span="
+                f"{scan_span}: {len(qs)} requests from {THREADS} threads: "
+                + json.dumps(rec), gpu)
+            check(r >= floor, f"FT.AGGREGATE {flt} ({dtype}, span "
+                  f"{scan_span}): recall@{AGG_K} {r} < {floor}")
+            check(outside == 0, f"FT.AGGREGATE {flt} ({dtype}): {outside} "
+                  "rows outside the filter")
+            check(exact > 0 or floor < RECALL_FLOOR,
+                  f"FT.AGGREGATE {flt} ({dtype}): no request's top {AGG_K} "
+                  "was the exact set, nothing compared")
+    engine.config_set("search.scan-span", "0")
+    return out
+
+
+def aggregate_columnar(bs, engine, cats, prices, gpu: str) -> dict:
+    """GROUPBY @cat + COUNT over the rows of @price:[0 99] by the columnar
+    route (TagIndex.value_counts: no keyspace fetch, no scan launch), against
+    np.unique; the same request by the per-row route, taken because an HSET
+    lands between its search and its count; and each route timed."""
+    from valkey_search_tpu_torch.runtime.metrics import STATS
+    from valkey_search_tpu_torch.server import ft_aggregate as agg
+
+    argv = ("FT.AGGREGATE", "idx", "@price:[0 99]", "GROUPBY", "1", "@cat",
+            "REDUCE", "COUNT", "0", "AS", "n")
+    sel = prices < 100
+    want = {f"c{c}": int(n) for c, n in zip(*np.unique(cats[sel],
+                                                       return_counts=True))}
+    index = engine.manager.get("idx").attribute("cat").index
+    columnar_calls = []
+    real = index.value_counts
+    index.value_counts = lambda docs: (columnar_calls.append(len(docs)),
+                                       real(docs))[1]
+
+    def groups(reply):
+        return {r["cat"]: int(r["n"]) for r in rows_of(reply)}
+
+    def timed_ms(reps: int = 3):
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            reply = engine.execute(*argv)
+            times.append((time.perf_counter() - t0) * 1e3)
+        return reply, sorted(times)
+
+    # a non-vector search fetches at most this many rows (default 10,000):
+    # raised over the filter's ~100,000 for this request, then put back
+    cap_option = "search.max-non-vector-search-results-fetched"
+    cap_before = engine.config_get(cap_option)
+    engine.config_set(cap_option, str(N_BIG))
+    try:
+        stages0 = STATS.get("agg_group_by_stages")
+        bs.reset_launches()
+        reply, columnar_ms = timed_ms()
+        check(groups(reply) == want and reply[0] == len(want),
+              "columnar GROUPBY differs from np.unique")
+        check(len(columnar_calls) == 3 and columnar_calls[0] == int(sel.sum()),
+              f"the columnar route was not taken ({columnar_calls})")
+        check(STATS.get("agg_group_by_stages") == stages0 + 3,
+              "agg_group_by_stages did not rise")
+        check(sum(bs.launch_counts().values()) == 0,
+              "a scan launched under a non-vector FT.AGGREGATE")
+        # an HSET between the search and the count: the epoch check of
+        # _engine_quiescent sends the request down the per-row route
+        stop = threading.Event()
+        key = "doc:0"
+        fields = ("cat", f"c{cats[0]}", "price", str(prices[0]))
+
+        def writer():
+            while not stop.is_set():
+                engine.execute("HSET", key, *fields)
+
+        t = threading.Thread(target=writer)
+        t.start()
+        try:
+            per_row = None
+            for attempt in range(20):
+                before = len(columnar_calls)
+                reply = engine.execute(*argv)
+                check(groups(reply) == want, "GROUPBY under writes differs "
+                      "from np.unique")
+                if len(columnar_calls) == before:
+                    per_row = attempt + 1
+                    break
+        finally:
+            stop.set()
+            t.join(60)
+        check(per_row is not None, "no request took the per-row route while "
+              "HSETs landed")
+        # the per-row route alone, timed with the columnar plan set aside
+        plan = agg._columnar_groupby_index
+        agg._columnar_groupby_index = lambda schema, spec: None
+        try:
+            reply, generic_ms = timed_ms()
+        finally:
+            agg._columnar_groupby_index = plan
+        check(groups(reply) == want, "per-row GROUPBY differs from np.unique")
+    finally:
+        del index.value_counts
+        engine.config_set(cap_option, str(cap_before))
+    rec = {"rows": int(sel.sum()), "groups": len(want),
+           "columnar_ms": columnar_ms, "per_row_ms": generic_ms,
+           "per_row_under_writes_after_requests": per_row}
+    log("FT.AGGREGATE idx '@price:[0 99]' GROUPBY @cat COUNT: "
+        + json.dumps(rec), gpu)
+    return rec
+
+
+def async_ingestion(torch, corpus, queries, cats, gpu: str) -> dict:
+    """N_ASYNC rows through Engine(sync_ingest=False) from ASYNC_WRITERS
+    threads and drain(), against a synchronous engine over the same rows:
+    KNN 10 keys equal; an index created after the data, backfilled by cron()
+    ticks, equal too; mutation_queue_size above 0 while loading and 0
+    after."""
+    from valkey_search_tpu_torch.server.engine import Engine
+
+    rows, rcats = corpus[:N_ASYNC], cats[:N_ASYNC]
+    qs = queries[:AGG_QUERIES]
+    create = ("ON", "HASH", "PREFIX", "1", "a:", "SCHEMA", "v", "VECTOR",
+              "FLAT", "6", "TYPE", "FLOAT32", "DIM", str(D),
+              "DISTANCE_METRIC", "L2", "cat", "TAG")
+
+    def hset(engine, i: int) -> None:
+        engine.execute("HSET", f"a:{i}", "v", rows[i].tobytes(), "cat",
+                       f"c{rcats[i]}")
+
+    def knn_keys(engine, index: str) -> list:
+        replies, _, _ = execute_all(engine, [
+            ("FT.SEARCH", index, knn("*"), "PARAMS", "2", "q", q.tobytes(),
+             "NOCONTENT") for q in qs])
+        return [set(r[1:]) for r in replies]
+
+    def queue_size(engine) -> int:
+        info = engine.execute("FT.INFO", "aidx")
+        return info[info.index("mutation_queue_size") + 1]
+
+    sync = Engine()
+    check(sync.execute("FT.CREATE", "aidx", *create) == "OK", "FT.CREATE aidx")
+    t0 = time.perf_counter()
+    for i in range(N_ASYNC):
+        hset(sync, i)
+    sync_s = time.perf_counter() - t0
+    want = knn_keys(sync, "aidx")
+
+    engine = Engine(sync_ingest=False)
+    check(engine.execute("FT.CREATE", "aidx", *create) == "OK",
+          "FT.CREATE aidx (asynchronous)")
+    # an asynchronous engine leaves a new index's backfill to the cron: over
+    # the empty keyspace one tick ends it
+    engine.cron()
+    check(not engine.manager.get("aidx").backfill_in_progress,
+          "aidx: the backfill of an empty keyspace did not end")
+    seen = []
+    errors = []
+
+    def writer(tid: int) -> None:
+        try:
+            for i in range(tid, N_ASYNC, ASYNC_WRITERS):
+                hset(engine, i)
+                if i % 8192 < ASYNC_WRITERS:  # each writer, every 8,192 rows
+                    seen.append(queue_size(engine))
+        except Exception as exc:  # reported below; the phase fails
+            errors.append(repr(exc))
+
+    threads = [threading.Thread(target=writer, args=(t,))
+               for t in range(ASYNC_WRITERS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    accepted_s = time.perf_counter() - t0
+    check(not any(t.is_alive() for t in threads) and not errors,
+          f"asynchronous HSETs failed: {errors[:3]}")
+    engine.drain()
+    applied_s = time.perf_counter() - t0
+    # with the writers parked, 8 rewrites must stand in the queue (the
+    # samples above read it under load, where it may be empty at times)
+    check(engine._ingestion.suspend(), "the writer pool did not park")
+    for i in range(8):
+        hset(engine, i)
+    held = queue_size(engine)
+    engine._ingestion.resume()
+    engine.drain()
+    check(held == 8, f"mutation_queue_size {held} with 8 writes held")
+    after = queue_size(engine)
+    info = engine.execute("FT.INFO", "aidx")
+    check(info[info.index("num_docs") + 1] == N_ASYNC,
+          "asynchronous engine: num_docs after drain()")
+    got = knn_keys(engine, "aidx")
+    differ = sum(g != w for g, w in zip(got, want))
+
+    # an index created after the data: cron() advances the backfill
+    engine.execute("FT.CREATE", "bidx", *create)
+    schema = engine.manager.get("bidx")
+    check(schema.backfill_in_progress, "bidx: no backfill pending")
+    t0 = time.perf_counter()
+    ticks = backfilled = 0
+    while schema.backfill_in_progress:
+        backfilled += engine.cron()["backfilled"]
+        engine.drain()
+        ticks += 1
+        check(ticks < 1000, "the backfill never ended")
+    backfill_s = time.perf_counter() - t0
+    differ_backfill = sum(g != w for g, w in zip(knn_keys(engine, "bidx"),
+                                                 want))
+    rec = {"rows": N_ASYNC, "writers": ASYNC_WRITERS,
+           "sync_hsets_per_s": N_ASYNC / sync_s,
+           "async_accepted_hsets_per_s": N_ASYNC / accepted_s,
+           "async_applied_hsets_per_s": N_ASYNC / applied_s,
+           "queue_size_seen_max": max(seen), "queue_size_held": held,
+           "queue_size_after": after,
+           "knn_sets_differing": differ, "backfill_ticks": ticks,
+           "backfilled": backfilled, "backfill_s": backfill_s,
+           "knn_sets_differing_after_backfill": differ_backfill}
+    log("asynchronous ingestion: " + json.dumps(rec), gpu)
+    check(after == 0, f"mutation_queue_size {after} after drain()")
+    check(differ == 0, f"{differ} of {len(qs)} KNN replies differ from the "
+          "synchronous engine's")
+    check(backfilled == N_ASYNC and differ_backfill == 0,
+          f"backfill: {backfilled} rows, {differ_backfill} replies differ")
+    engine._ingestion.shutdown()
+    del sync, engine
+    torch.cuda.empty_cache()
+    return rec
+
+
+def expiry_and_transactions(engine, corpus, queries, gpu: str) -> dict:
+    """On the 1M index: PEXPIRE on N_EXPIRE returned keys, after the deadline
+    none returns from KNN or FT.AGGREGATE, before or after cron(); HDEL of
+    the vector field removes the row; a multi() of 10 HSETs is seen whole
+    (and deleted again)."""
+    qs = queries[:AGG_QUERIES]
+
+    def search(q, k=K):
+        return engine.execute("FT.SEARCH", "idx", knn("*", k), "PARAMS", "2",
+                              "q", q.tobytes(), "NOCONTENT", "LIMIT", "0",
+                              str(k))[1:]
+
+    def aggregated(q):
+        reply = engine.execute("FT.AGGREGATE", "idx", knn("*"), "PARAMS", "2",
+                               "q", q.tobytes(), "LOAD", "1", "@__key")
+        return [r["__key"] for r in rows_of(reply)]
+
+    # the first hits of the first N_EXPIRE queries, distinct
+    doomed, probes = [], []
+    for q in qs:
+        top = search(q, 1)[0]
+        if top not in doomed:
+            doomed.append(top)
+            probes.append(q)
+        if len(doomed) == N_EXPIRE:
+            break
+    check(len(doomed) == N_EXPIRE, f"only {len(doomed)} distinct first hits")
+    for key in doomed:
+        check(engine.execute("PEXPIRE", key, str(EXPIRE_MS)) == 1,
+              f"PEXPIRE {key}")
+    check(0 < engine.execute("TTL", doomed[-1]) <= EXPIRE_MS / 1e3, "TTL")
+    time.sleep(EXPIRE_MS / 1e3 + 0.05)
+    gone = set(doomed)
+    # no sweep yet: content resolution drops the expired keys it meets
+    # (half of them here; the cron sweeps the rest)
+    back = sum(1 for q in probes[::4] for k in search(q) if k in gone)
+    back += sum(1 for q in probes[1::4] for k in aggregated(q) if k in gone)
+    swept = engine.cron()["expired"]
+    check(swept > 0, "cron() swept no expired key")
+    back_after = sum(1 for q in probes for k in search(q) if k in gone)
+    back_after += sum(1 for q in probes for k in aggregated(q) if k in gone)
+    check(back == 0 and back_after == 0,
+          f"expired keys returned: {back} before cron(), {back_after} after")
+    check(not engine._expiry and engine.execute("EXISTS", *doomed) == 0,
+          "expired keys left behind")
+
+    # HDEL of the vector field: the key stays, its row leaves the KNN
+    victim = search(qs[-1], 1)[0]
+    own = corpus[int(victim[len("doc:"):])]
+    check(engine.execute("HDEL", victim, "v") == 1, f"HDEL {victim} v")
+    hits = search(own)
+    check(victim not in hits and engine.execute("EXISTS", victim) == 1
+          and engine.execute("HGET", victim, "v") is None,
+          f"HDEL: {victim} still returned, or gone from the keyspace")
+    engine.execute("HSET", victim, "v", own.tobytes())
+    check(search(own, 1) == [victim], "HSET after HDEL: the row is not back")
+
+    # a transaction of 10 HSETs around one probe, seen whole
+    probe = queries[-11]
+    keys = [f"doc:{N_BIG + j}" for j in range(10)]
+    tx = engine.multi()
+    for j, key in enumerate(keys):
+        vec = probe.copy()
+        vec[0] += j * 1e-3
+        tx.hset(key, {"v": vec.tobytes(), "cat": "c7", "price": "1"})
+    check(tx.exec() == 10, "multi(): exec count")
+    hits = search(probe)
+    check(set(hits) == set(keys), f"multi(): KNN 10 returned {hits}")
+    check(engine.execute("DEL", *keys) == 10, "DEL of the transaction's keys")
+    rec = {"expired": len(doomed), "swept_by_cron": swept,
+           "returned_before_cron": back, "returned_after_cron": back_after}
+    log("expiry, HDEL and multi() on idx: " + json.dumps(rec), gpu)
+    return rec
+
+
+def observability(engine, queries, before: dict, gpu: str) -> dict:
+    """INFO holds the reference's field names and counters that moved since
+    ``before``; FT._DEBUG PROFILE writes a non-empty trace of one KNN batch."""
+    engine.config_set("search.debug-mode", "yes")  # developer fields too
+    info = engine.execute("INFO")
+    missing = [f for f in INFO_FIELDS if f not in info]
+    check(not missing, f"INFO lacks {missing}")
+    errors = [f for f, v in info.items() if v == "<error>"]
+    check(not errors, f"INFO fields failed to render: {errors}")
+    moved = {f: info[f] - before[f] for f in INFO_MOVED}
+    check(all(v > 0 for v in moved.values()), f"INFO counters {moved}")
+    check(info["search_number_of_indexes"] == 1
+          and info["search_total_indexed_documents"] >= N_BIG - N_EXPIRE - 1,
+          "INFO index gauges")
+    out_dir = tempfile.mkdtemp(prefix="ft_debug_profile_")
+    try:
+        check(engine.execute("FT._DEBUG", "PROFILE", "START", out_dir) == "OK",
+              "FT._DEBUG PROFILE START")
+        index = engine.manager.get("idx").attribute("v").index
+        index.search_batch(queries[:N_QUERIES], K)
+        check(engine.execute("FT._DEBUG", "PROFILE", "STOP") == "OK",
+              "FT._DEBUG PROFILE STOP")
+        traces = os.listdir(out_dir)
+        size = sum(os.path.getsize(os.path.join(out_dir, t)) for t in traces)
+        with open(os.path.join(out_dir, traces[0])) as f:
+            text = f.read()
+        check(len(traces) == 1 and size > 1000, f"PROFILE wrote {traces}")
+        check("scan_bf16" in text or "scan_i8" in text,
+              "PROFILE's trace does not hold the scan kernel")
+    finally:
+        engine.config_set("search.debug-mode", "no")
+        shutil.rmtree(out_dir, ignore_errors=True)
+    rec = {"info_fields": len(info), "moved": moved, "trace_bytes": size}
+    log("INFO and FT._DEBUG PROFILE: " + json.dumps(rec), gpu)
+    return rec
+
+
+def aggregate_phase(torch, bs, gpu: str, engine, corpus, queries, cats,
+                    prices, agg_filters, gt_agg, launches: dict) -> dict:
+    info0 = engine.info(include_dev=True)
+    out = {"knn": aggregate_knn(bs, engine, queries, cats, prices,
+                                agg_filters, gt_agg, launches, gpu)}
+    out["columnar"] = aggregate_columnar(bs, engine, cats, prices, gpu)
+    out["observability"] = observability(engine, queries, info0, gpu)
+    out["expiry"] = expiry_and_transactions(engine, corpus, queries, gpu)
+    out["async"] = async_ingestion(torch, corpus, queries, cats, gpu)
+    return out
+
+
+
 def slice_phase(torch, bs, dev, gpu: str) -> dict:
     from valkey_search_tpu_torch.server.engine import Engine
 
@@ -735,6 +1316,11 @@ def slice_phase(torch, bs, dev, gpu: str) -> dict:
     gt_big = fp64_gt(torch, c64, csq, qs_gt, K, dev)
     gt_filtered = [fp64_gt(torch, c64, csq, qs_gt, K, dev, allowed)
                    for _, allowed in filters]
+    # the aggregate phase's: the top AGG_K, unfiltered and under the ~1%
+    # tag and ~10% price filters
+    agg_filters = [("*", None)] + filters[:2]
+    gt_agg = [fp64_gt(torch, c64, csq, queries[:AGG_QUERIES], AGG_K, dev,
+                      allowed) for _, allowed in agg_filters]
     gt_small = fp64_gt(torch, c64[:N_SMALL], csq[:N_SMALL], qs_gt, K, dev)
     gt_text = fp64_gt(torch, c64[:N_SMALL], csq[:N_SMALL], qs_gt, K, dev,
                       text_filter[1])
@@ -799,9 +1385,17 @@ def slice_phase(torch, bs, dev, gpu: str) -> dict:
     check(len(got) == 10 and got == sorted(got)
           and all(0 <= p <= 99 for p in got), "SORTBY price")
 
+    t_agg = time.perf_counter()
+    stats["aggregate"] = aggregate_phase(
+        torch, bs, gpu, engine, corpus, queries, cats, prices, agg_filters,
+        gt_agg, stats["launches"])
+    log(f"aggregate phase {time.perf_counter() - t_agg:.1f} s", gpu)
+
     # DEL 1,000 returned keys; none may come back under either dtype
-    deleted = list(dict.fromkeys(key for row in keys_bf16 for key in row))
-    deleted = deleted[:1000]
+    # (of those the aggregate phase's expiry left in the keyspace)
+    deleted = [key for key in dict.fromkeys(
+        key for row in keys_bf16 for key in row)
+        if engine.execute("EXISTS", key)][:1000]
     check(len(deleted) == 1000, f"only {len(deleted)} distinct keys returned")
     check(engine.execute("DEL", *deleted) == len(deleted), "DEL count")
     gone = set(deleted)
@@ -901,9 +1495,9 @@ def hnsw_engine(torch, bs, dev, gpu: str, corpus, queries, cats,
     def routed(flt, dtype, gt_, expect, allowed=None, floor=RECALL_FLOOR):
         rec = {"launches": {}}
         keys = run_searches(torch, engine, bs, "hidx", "h:",
-                            qs if flt == "*" else qs_gt, gt_, dtype, expect,
-                            gpu, rec, flt=flt, allowed=allowed, ef=ef,
-                            floor=floor)
+                            qs if flt == "*" else qs_gt[:len(gt_)], gt_,
+                            dtype, expect, gpu, rec, flt=flt,
+                            allowed=allowed, ef=ef, floor=floor)
         _merge_launches(stats["launches"], rec.pop("launches"))
         return keys, next(iter(rec.values()))
 
@@ -947,7 +1541,10 @@ def hnsw_engine(torch, bs, dev, gpu: str, corpus, queries, cats,
     for flt, allowed, route in (("*", live, "aos"),
                                 ("(-@cat:{c7})", live & ~c7, "soa"),
                                 ("@cat:{c7}", live & c7, "scan")):
-        gt_w = fp64_gt(torch, c64, csq, qs_gt, K, dev, allowed)
+        # an inline-filtered request walks alone (seconds each from 16
+        # threads), so that route answers N_SOA queries
+        n_q = N_SOA if route == "soa" else len(qs_gt)
+        gt_w = fp64_gt(torch, c64, csq, qs_gt[:n_q], K, dev, allowed)
         before = {name: STATS.get(name) for name in (
             "hnsw_searches", "hnsw_served_by_scan",
             "vector_searches_prefiltered", "vector_searches_inline_filtered")}
@@ -964,7 +1561,8 @@ def hnsw_engine(torch, bs, dev, gpu: str, corpus, queries, cats,
                   and moved["vector_searches_prefiltered"] > 0,
                   f"{flt}: not the pre-filtered scan")
         else:
-            check(moved["hnsw_searches"] >= len(qs_gt), f"{flt}: no walk")
+            check(moved["hnsw_searches"] >= min(n_q, len(qs_gt)),
+                  f"{flt}: no walk")
         if route == "aos":
             check(index._aos_tables is not None, "the AoS mirror not built")
         if route == "soa":
@@ -1015,9 +1613,9 @@ def _device_share(torch, fn, ranges: str = "") -> dict:
 
 def hnsw_index(torch, bs, dev, gpu: str, corpus, queries, stats: dict) -> None:
     """(b) HnswVectorIndex(dim 128, M 16, EF_CONSTRUCTION 200).bulk_load of
-    N_BIG rows under build-mode device, each stage timed, and the publish;
-    search_batch at B = 1,024, ef 100 on the scan route under int8 (K1 at
-    pre_shift > 0) and bfloat16 (K2); the device walk at ef 10, 50 and 100
+    N_HNSW_BIG rows under build-mode device, each stage timed, and the
+    publish; search_batch at B = 1,024, ef 100 on the scan route under int8
+    (K1 at pre_shift > 0: span 4 at capacity 524,288) and bfloat16 (K2); the device walk at ef 10, 50 and 100
     beside the native walk over the same graph (N_NATIVE queries)."""
     from valkey_search_tpu_torch.indexes.hnsw import HnswVectorIndex
     from valkey_search_tpu_torch.ops import hnsw_search as hs_ops
@@ -1048,7 +1646,7 @@ def hnsw_index(torch, bs, dev, gpu: str, corpus, queries, stats: dict) -> None:
         + json.dumps(build), gpu)
     check(index.node_count == n, "bulk_load node count")
 
-    # the scan route, K1 (pre_shift > 0 at cap 1,048,576) and K2
+    # the scan route, K1 (pre_shift > 0 from capacity 524,288) and K2
     for dtype, kernel in (("int8", "bucket_scan_i8_packed[pre_shift>0]"),
                           ("bfloat16", "bucket_scan_bf16")):
         config.set_config("search.corpus-dtype", dtype)
@@ -1551,6 +2149,7 @@ def main() -> int:
             # beside the kernel phase's check_launches
             "launches": stats["launches"].get(name, 0), **rec,
         })
+    log(f"all phases {time.perf_counter() - _T0:.1f} s", gpu)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(gpu, flush=True)
     print(json.dumps({"ok": True, "device": {

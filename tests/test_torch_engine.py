@@ -157,23 +157,33 @@ def test_error_probes_raise_the_same_types(rng):
 
 def test_unported_surface_raises_typed_errors():
     teng = Engine()
-    with pytest.raises(CommandError, match="ft_aggregate"):
-        teng.execute("FT.AGGREGATE", "idx", "*")
-    with pytest.raises(CommandError, match="not ported"):
-        teng.execute("JSON.SET", "k", "$", "{}")
-    with pytest.raises(CommandError, match="keyspace commands"):
-        teng.execute("HDEL", "k", "f")
-    with pytest.raises(CommandError, match="acl"):
-        teng.execute("FT._LIST", user="alice")
-    for cmd in ("FT._DEBUG", "EXPIRE", "MULTI", "SAVE", "HGET"):
-        with pytest.raises(CommandError, match="not ported"):
-            teng.execute(cmd, "k")
+    # persistence is what stays unported: the commands and the methods
+    for cmd in ("SAVE", "BGSAVE", "save", "bgsave"):
+        with pytest.raises(CommandError, match=r"not ported.*persistence/"):
+            teng.execute(cmd)
+    with pytest.raises(CommandError, match=r"not ported.*persistence/"):
+        teng.save("snapshot")
+    with pytest.raises(CommandError, match=r"not ported.*persistence/"):
+        Engine.load("snapshot")
+    # the rest of the surface answers: keyspace, expiry, JSON, ACL, debug
+    assert teng.execute("HSET", "k", "f", "1", "g", "2") == 2
+    assert teng.execute("HDEL", "k", "f") == 1
+    assert teng.execute("HGET", "k", "g") == "2"
+    assert teng.execute("EXPIRE", "k", "100") == 1
+    assert teng.execute("JSON.SET", "j", "$", '{"a": 1}') == "OK"
+    assert teng.execute("FT._DEBUG", "STRING_POOL_STATS")[-1] == 2
+    teng.acl.setuser("alice", "on", "~doc:*", "+@search")
+    assert teng.execute("FT._LIST", user="alice") == []
+    with pytest.raises(CommandError, match="unknown command"):
+        teng.execute("MULTI")
     # VECTOR HNSW, TAG, NUMERIC and TEXT are ported: the indexes are created
     assert teng.execute("FT.CREATE", "h", "SCHEMA", "v", "VECTOR", "HNSW",
                         "6", "TYPE", "FLOAT32", "DIM", "4",
                         "DISTANCE_METRIC", "L2") == "OK"
     assert teng.execute("FT.CREATE", "t", "SCHEMA", "tag", "TAG", "n",
                         "NUMERIC", "title", "TEXT") == "OK"
+    assert teng.execute("FT.AGGREGATE", "t", "*", "GROUPBY", "1", "@tag",
+                        "REDUCE", "COUNT", "0", "AS", "n") == [0]
 
 
 _GUARD = r"""
@@ -214,6 +224,13 @@ assert reply[0] == 3 and set(reply[1:]) == {"k0", "k1", "k2"}, reply
 reply = e.execute("FT.SEARCH", "i", "@n:[1 4]", "SORTBY", "n", "DESC",
                   "NOCONTENT")
 assert reply == [4, "k4", "k3", "k2", "k1"], reply
+reply = e.execute("FT.AGGREGATE", "i", "*=>[KNN 4 @v $q]", "PARAMS", "2", "q",
+                  q, "LOAD", "1", "@t", "GROUPBY", "1", "@t", "REDUCE",
+                  "COUNT", "0", "AS", "c", "SORTBY", "2", "@t", "ASC")
+assert reply == [2, ["t", "even", "c", "2"], ["t", "odd", "c", "2"]], reply
+reply = e.execute("FT.AGGREGATE", "i", "@n:[0 4]", "GROUPBY", "1", "@t",
+                  "REDUCE", "COUNT", "0", "AS", "c")
+assert reply == [2, ["t", "even", "c", "3"], ["t", "odd", "c", "2"]], reply
 e.execute("FT.CREATE", "h", "ON", "HASH", "PREFIX", "1", "h:", "SCHEMA", "v",
           "VECTOR", "HNSW", "10", "TYPE", "FLOAT32", "DIM", "4",
           "DISTANCE_METRIC", "L2", "M", "4", "EF_CONSTRUCTION", "20")
@@ -227,6 +244,19 @@ e.config_set("search.hnsw-scan-threshold", "0")  # the graph walk serves
 reply = e.execute("FT.SEARCH", "h", "*=>[KNN 2 @v $q EF_RUNTIME 8]",
                   "PARAMS", "2", "q", q, "NOCONTENT")
 assert reply == [2, "h:3", "h:4"], reply
+a = Engine(sync_ingest=False)
+a.execute("FT.CREATE", "i", "SCHEMA", "v", "VECTOR", "FLAT", "6", "TYPE",
+          "FLOAT32", "DIM", "4", "DISTANCE_METRIC", "L2")
+for i in range(5):
+    a.execute("HSET", f"k{i}", "v", np.full(4, i, np.float32).tobytes())
+a.drain()
+reply = a.execute("FT.SEARCH", "i", "*=>[KNN 2 @v $q]", "PARAMS", "2", "q",
+                  q, "NOCONTENT")
+assert reply == [2, "k3", "k4"], reply
+assert a.cron()["expired"] == 0
+info = e.execute("INFO")
+assert info["search_number_of_indexes"] == 2, info
+assert info["search_aggregate_queries"] == 2, info
 assert not [m for m in sys.modules if m.split(".")[0] in _BLOCKED]
 print("no-jax-ok")
 """

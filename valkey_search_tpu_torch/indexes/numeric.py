@@ -229,6 +229,10 @@ class NumericIndex(IndexBase):
         with self._lock:
             return key in self._tracked
 
+    def untracked_keys(self) -> Set[str]:
+        with self._lock:
+            return set(self._untracked)
+
     def count(self) -> int:
         with self._lock:
             return len(self._tracked)
@@ -237,3 +241,7 @@ class NumericIndex(IndexBase):
         with self._lock:
             doc = self._tracked.get(key)
             return self._values.get(doc) if doc is not None else None
+
+    def all_docs(self) -> Set[int]:
+        with self._lock:
+            return set(self._tracked.values())

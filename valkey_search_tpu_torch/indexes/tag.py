@@ -8,8 +8,10 @@ per stored tag. A mutation drops the masks of the tags it touches; a change
 of the requested capacity drops them all. The cache is shared by every
 searching thread, so each read and write of it holds the index lock.
 
-The raw-value column of the JAX package's tag index serves its columnar
-FT.AGGREGATE GROUPBY, which is not ported; the port keeps no such column.
+Beside the postings the index keeps a raw-value column: per doc the interned
+id of the unparsed field value, which answers FT.AGGREGATE's columnar
+GROUPBY + COUNT (``value_counts``) with no keyspace fetch. It lives on the
+host, as every group key is a Python string.
 """
 
 from __future__ import annotations
@@ -67,6 +69,14 @@ class TagIndex(IndexBase):
         self._doc_tags: Dict[int, Set[str]] = {}
         self._tracked: Dict[str, int] = {}
         self._untracked: Set[str] = set()  # keys seen with no usable tag
+        # raw-value column: GROUPBY groups by the raw document string, not
+        # by the normalized tag set
+        self._doc_val = np.full(64, -1, np.int32)
+        self._vals: List[str] = []
+        self._val_ids: Dict[str, int] = {}
+        # untracked keys still carry a raw value the generic GROUPBY would
+        # group under; they own no doc id here, so they sit in a side map
+        self._untracked_raw: Dict[str, str] = {}
         self._lock = threading.RLock()
         self._mask_cache: Dict[str, torch.Tensor] = {}
         self._mask_cache_cap = 0
@@ -82,16 +92,25 @@ class TagIndex(IndexBase):
             for tags in self._doc_tags.values():
                 b += 64 + 48 * len(tags)
             b += 72 * (len(self._tracked) + len(self._untracked))
+            b += self._doc_val.nbytes
+            b += sum(120 + len(v) for v in self._vals)
+            b += sum(96 + len(k) + len(v)
+                     for k, v in self._untracked_raw.items())
             return b
 
     # -- mutation ------------------------------------------------------------
     def add_record(self, key: str, value) -> RecordResult:
         # hash values arrive as bytes; tags are parsed as strict UTF-8
         if isinstance(value, (bytes, bytearray)):
+            # the raw column holds what the generic GROUPBY's content fetch
+            # would coerce to; tag parsing keeps strict UTF-8
+            raw = bytes(value).decode(errors="surrogateescape")
             try:
                 value = bytes(value).decode("utf-8")
             except UnicodeDecodeError:
                 value = ""
+        else:
+            raw = str(value)
         tags = parse_tags(str(value), self.separator, self.case_sensitive)
         with self._lock:
             existed = key in self._tracked
@@ -99,13 +118,16 @@ class TagIndex(IndexBase):
                 if existed:
                     self._remove_locked(key)
                 self._untracked.add(key)
+                self._untracked_raw[key] = raw
                 return RecordResult.SKIPPED
             doc = self.interner.intern(key)
             if existed:
                 self._clear_doc(doc)
             self._untracked.discard(key)
+            self._untracked_raw.pop(key, None)
             self._tracked[key] = doc
             self._doc_tags[doc] = set(tags)
+            self._set_raw(doc, raw)
             for t in tags:
                 if t not in self._postings:
                     self._postings[t] = set()
@@ -121,6 +143,7 @@ class TagIndex(IndexBase):
     def remove_record(self, key: str) -> RecordResult:
         with self._lock:
             self._untracked.discard(key)
+            self._untracked_raw.pop(key, None)
             if key not in self._tracked:
                 return RecordResult.SKIPPED
             self._remove_locked(key)
@@ -129,9 +152,51 @@ class TagIndex(IndexBase):
     def _remove_locked(self, key: str) -> None:
         doc = self._tracked.pop(key)
         self._clear_doc(doc)
+        if doc < len(self._doc_val):
+            self._doc_val[doc] = -1
         if self._owns_interner:
             self.interner.release(key)
         self.epoch += 1
+
+    def _set_raw(self, doc: int, raw: str) -> None:
+        """Record the raw field value of ``doc`` in the column."""
+        vid = self._val_ids.get(raw)
+        if vid is None:
+            vid = len(self._vals)
+            self._vals.append(raw)
+            self._val_ids[raw] = vid
+        if doc >= len(self._doc_val):
+            grow = max(64, len(self._doc_val), doc + 1 - len(self._doc_val))
+            self._doc_val = np.concatenate(
+                [self._doc_val, np.full(grow, -1, np.int32)]
+            )
+        self._doc_val[doc] = vid
+
+    def value_counts(self, docs: np.ndarray):
+        """Columnar GROUPBY + COUNT: for the ascending doc-id array of a
+        match set, ``[(raw_value_or_None, count)]`` in first-occurrence
+        order, the groups and order the per-row pipeline would produce. Docs
+        outside the column group under None. Returns None while untracked
+        keys with raw values exist (their doc ids are not owned here, so
+        the caller falls back to the per-row path)."""
+        with self._lock:
+            if self._untracked_raw:
+                return None
+            col = self._doc_val
+            v = np.full(docs.shape, -1, np.int32)
+            inb = docs < len(col)
+            v[inb] = col[docs[inb]]
+            vals, first, counts = np.unique(
+                v, return_index=True, return_counts=True
+            )
+            order = np.argsort(first, kind="stable")
+            out = []
+            for j in order:
+                vid = int(vals[j])
+                out.append((
+                    self._vals[vid] if vid >= 0 else None, int(counts[j])
+                ))
+            return out
 
     def _clear_doc(self, doc: int) -> None:
         for t in self._doc_tags.pop(doc, ()):
@@ -154,9 +219,7 @@ class TagIndex(IndexBase):
         p = self.normalize_query_tag(pattern)
         if p.endswith("*") and len(p) > 1:
             prefix = p[:-1]
-            if self._sorted_cache is None:
-                self._sorted_cache = sorted(self._postings)
-            tags = self._sorted_cache
+            tags = self._sorted_tags()
             out = []
             # walk while the prefix holds: a sentinel upper bound would sort
             # below supplementary-plane continuations
@@ -166,6 +229,15 @@ class TagIndex(IndexBase):
                 out.append(t)
             return out
         return [p] if p in self._postings else []
+
+    def _sorted_tags(self) -> List[str]:
+        if self._sorted_cache is None:
+            self._sorted_cache = sorted(self._postings)
+        return self._sorted_cache
+
+    def posting(self, tag: str) -> Set[int]:
+        with self._lock:
+            return set(self._postings.get(self.normalize_query_tag(tag), ()))
 
     def _union(self, tags: Iterable[str]) -> Set[int]:
         acc: Set[int] = set()
@@ -253,7 +325,19 @@ class TagIndex(IndexBase):
         with self._lock:
             return key in self._tracked
 
+    def untracked_keys(self) -> Set[str]:
+        with self._lock:
+            return set(self._untracked)
+
     def count(self) -> int:
         with self._lock:
             return len(self._tracked)
+
+    def unique_tags(self) -> int:
+        with self._lock:
+            return len(self._postings)
+
+    def all_docs(self) -> Set[int]:
+        with self._lock:
+            return set(self._tracked.values())
 

@@ -23,10 +23,14 @@ for followers before launching.
 
 The port's own copy of valkey_search_tpu/query/batcher.py: the same
 names, defaults and behaviour, with its imports pointing into
-valkey_search_tpu_torch, and one repair: a submit wakes every waiting
-dispatcher (``notify_all``). The JAX package wakes one, which under mixed
+valkey_search_tpu_torch, and these departures. A submit wakes every waiting
+dispatcher (``notify_all``): the JAX package wakes one, which under mixed
 (index, k, ef) signatures can be another signature's worker, so a query
-could wait out IDLE_S.
+could wait out IDLE_S. A dispatcher that dies gives its count back, so a
+later submit starts a new one instead of waiting for ever. A waiter's
+cancelled future no longer turns the rest of its batch into errors. And a
+batch is launched at its own size: the JAX package pads it to a power of
+two so that XLA compiles few shapes, which the CUDA scans do not need.
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ from __future__ import annotations
 import threading
 import time
 from collections import deque
-from concurrent.futures import Future
+from concurrent.futures import Future, InvalidStateError
 from typing import Deque, Dict, Optional
 
 import numpy as np
@@ -97,61 +101,78 @@ class VectorQueryBatcher:
         return q.future
 
     def _worker(self, sig: tuple, index, k: int, ef: Optional[int]) -> None:
-        while True:
+        try:
+            while self._serve_one(sig, index, k, ef):
+                pass
+        except BaseException:
+            # a dispatcher that dies gives its count back, so the next
+            # submit for this signature starts a new one
             with self._cond:
-                deadline = time.monotonic() + self.IDLE_S
-                while not self._queues.get(sig):
-                    remaining = deadline - time.monotonic()
-                    if remaining <= 0:
-                        n = self._workers[sig] - 1
-                        if n:
-                            self._workers[sig] = n
-                        else:
-                            del self._workers[sig]
-                            self._queues.pop(sig, None)
-                        return
-                    self._cond.wait(remaining)
-            window_s = float(config.get("search.query-batch-window-us")) / 1e6
-            if window_s > 0:
-                time.sleep(window_s)  # let followers pile up behind us
-            max_batch = int(config.get("search.query-max-batch"))
-            with self._cond:
-                queue = self._queues.get(sig)
-                chunk = []
-                while queue and len(chunk) < max_batch:
-                    chunk.append(queue.popleft())
-            if not chunk:
-                continue
-            try:
-                queries = np.stack([p.vector for p in chunk])
-                # pow2 shape bucketing: XLA compiles one program per input
-                # shape, so arbitrary coalesce sizes each pay a fresh
-                # trace+compile mid-serving (measured: 16s p99 spikes under
-                # open-loop load, bench r5). Padding to the next power of
-                # two caps the shape set at log2(max-batch) programs; the
-                # duplicated tail rows are dropped on reply.
-                n_real = queries.shape[0]
-                if n_real & (n_real - 1):
-                    padded = 1 << (n_real - 1).bit_length()
-                    queries = np.concatenate([
-                        queries,
-                        np.broadcast_to(
-                            queries[-1], (padded - n_real, queries.shape[1])
-                        ),
-                    ])
-                if ef is not None:
-                    d, ids = index.search_batch(queries, k, ef=ef)
-                else:
-                    d, ids = index.search_batch(queries, k)
-                STATS.incr("batched_queries", len(chunk))
-                if len(chunk) > 1:
-                    STATS.incr("query_batches_coalesced")
-                for row, p in enumerate(chunk):
-                    p.future.set_result((d[row], ids[row]))
-            except Exception as exc:  # propagate to every waiter
-                for p in chunk:
-                    if not p.future.done():
-                        p.future.set_exception(exc)
+                self._retire(sig)
+            raise
+
+    def _retire(self, sig: tuple) -> None:
+        """Give one dispatcher's count back (the condition is held). The
+        queue goes with the last one only while it is empty."""
+        n = self._workers.get(sig, 0) - 1
+        if n > 0:
+            self._workers[sig] = n
+        else:
+            self._workers.pop(sig, None)
+            if not self._queues.get(sig):
+                self._queues.pop(sig, None)
+
+    def _serve_one(self, sig: tuple, index, k: int, ef: Optional[int]) -> bool:
+        """Wait for queries, launch one batch; False once idle for IDLE_S
+        (the dispatcher's count is then already given back)."""
+        with self._cond:
+            deadline = time.monotonic() + self.IDLE_S
+            while not self._queues.get(sig):
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    self._retire(sig)
+                    return False
+                self._cond.wait(remaining)
+        window_s = float(config.get("search.query-batch-window-us")) / 1e6
+        if window_s > 0:
+            time.sleep(window_s)  # let followers pile up behind us
+        max_batch = int(config.get("search.query-max-batch"))
+        with self._cond:
+            queue = self._queues.get(sig)
+            chunk = []
+            while queue and len(chunk) < max_batch:
+                chunk.append(queue.popleft())
+        if not chunk:
+            return True
+        try:
+            # the batch goes out at its own size: the scans take any B
+            queries = np.stack([p.vector for p in chunk])
+            if ef is not None:
+                d, ids = index.search_batch(queries, k, ef=ef)
+            else:
+                d, ids = index.search_batch(queries, k)
+            STATS.incr("batched_queries", len(chunk))
+            if len(chunk) > 1:
+                STATS.incr("query_batches_coalesced")
+        except Exception as exc:  # propagate to every waiter
+            for p in chunk:
+                _settle(p.future, exc=exc)
+            return True
+        for row, p in enumerate(chunk):
+            _settle(p.future, (d[row], ids[row]))
+        return True
+
+
+def _settle(future: Future, result=None, exc=None) -> None:
+    """Resolve one waiter; a future its caller cancelled is skipped, so the
+    rest of its batch still gets results."""
+    try:
+        if exc is not None:
+            future.set_exception(exc)
+        else:
+            future.set_result(result)
+    except InvalidStateError:
+        pass
 
 
 _GLOBAL = VectorQueryBatcher()

@@ -151,6 +151,33 @@ class TagPredicate(Predicate):
     def matches(self, ctx, doc):
         return self._index(ctx).doc_matches(doc, self.values)
 
+    def matches_content(self, ctx, fields, doc):
+        from valkey_search_tpu_torch.indexes.tag import parse_tags
+
+        attr = ctx.attribute(self.field)
+        raw = ctx.schema.data_type.fetch(fields, attr.identifier)
+        if raw is None:
+            return False  # field absent from the new content
+        if isinstance(raw, (bytes, bytearray)):
+            try:
+                raw = bytes(raw).decode("utf-8")
+            except UnicodeDecodeError:
+                return None
+        if not isinstance(raw, str):
+            return None
+        idx = self._index(ctx)
+        tags = parse_tags(raw, idx.separator, idx.case_sensitive)
+        if not tags:
+            return False
+        for pat in self.values:
+            p = idx.normalize_query_tag(pat)
+            if p.endswith("*") and len(p) > 1:
+                if any(t.startswith(p[:-1]) for t in tags):
+                    return True
+            elif p in tags:
+                return True
+        return False
+
     def fetch_ids(self, ctx):
         return self._index(ctx).search(self.values)
 

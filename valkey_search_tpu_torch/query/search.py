@@ -52,6 +52,9 @@ class SearchParameters:
     withsortkeys: bool = False
     ef_runtime: Optional[int] = None
     local_only: bool = False
+    # columnar consumers (FT.AGGREGATE's index-columnar GROUPBY) take the
+    # doc-id ndarray instead of materialized Neighbor rows
+    docs_only: bool = False
 
 
 class Neighbor:
@@ -78,6 +81,9 @@ class SearchResponse:
     # schema.mutation_epoch when the search began: content resolution skips
     # per-row re-verification while it is unchanged
     epoch: int = -1
+    # docs_only result: ascending doc-id ndarray instead of neighbors
+    # (materialize_neighbors() converts on fallback)
+    doc_array: Optional[np.ndarray] = None
 
 
 def execute_search(schema, sp: SearchParameters, token=None) -> SearchResponse:
@@ -173,10 +179,22 @@ def _search_non_vector(schema, ctx, pred, sp, token=None) -> SearchResponse:
     if token is not None:
         token.check()
     STATS.incr("non_vector_searches")
-    docs = arr.tolist()
+    if sp.docs_only:
+        return SearchResponse(total=total, neighbors=[], doc_array=arr)
+    resp = SearchResponse(total=total, neighbors=[], doc_array=arr)
+    materialize_neighbors(schema, resp)
+    return resp
+
+
+def materialize_neighbors(schema, resp: SearchResponse) -> None:
+    """Build the Neighbor rows of a docs_only response whose consumer could
+    not stay columnar."""
+    if resp.doc_array is None:
+        return
+    docs = resp.doc_array.tolist()
     keys = schema.interner.keys_of(docs)
-    neighbors = [
+    resp.neighbors = [
         Neighbor(key, None, doc)
         for key, doc in zip(keys, docs) if key is not None
     ]
-    return SearchResponse(total=total, neighbors=neighbors)
+    resp.doc_array = None

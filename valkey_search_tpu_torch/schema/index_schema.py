@@ -3,8 +3,10 @@
 Counterpart of valkey_search_tpu/schema/index_schema.py (reference
 src/index_schema.{h,cc}). All attribute indexes share one KeyInterner, so
 predicate masks and vector rows align on one doc-id space; masks are bool
-tensors on the schema's device. ``upsert``/``delete`` are the synchronous
-write path.
+tensors on the schema's device. ``upsert``/``delete`` are the write path,
+called by the engine directly or by the ingestion queue's writer threads
+(schema/ingestion.py); both run under the schema's lock and touch host
+structures only, so a device tensor changes at a search's publish alone.
 
 TAG, NUMERIC, TEXT, ``VECTOR FLAT`` and ``VECTOR HNSW`` attributes are
 ported. ``schema_from_reference`` builds a schema over the JAX package's
@@ -83,6 +85,11 @@ class IndexSchema:
         self.mutation_epoch = 0  # bumped per applied mutation
         self.indexing_failures = 0
         self.backfill_in_progress = False
+        self.backfill_scanned = 0
+        self.backfill_cursor = 0
+        self.backfill_outstanding = 0  # refreshes enqueued, not yet applied
+        self._backfill_ctr_lock = threading.Lock()
+        self.paused_by_oom = False
         self._valid_mask_cache = None
         self.text_engine: Optional[TextEngine] = None  # with the first TEXT
         self.text_options: Optional[dict] = None  # FT.CREATE's text options
@@ -158,6 +165,9 @@ class IndexSchema:
         return [a for a in self.attributes.values()
                 if a.kind in ("HNSW", "FLAT")]
 
+    def text_attributes(self) -> List[Attribute]:
+        return [a for a in self.attributes.values() if a.kind == "TEXT"]
+
     # -- key routing ---------------------------------------------------------
     def matches_key(self, key: str) -> bool:
         return any(key.startswith(p) for p in self.prefixes)
@@ -211,6 +221,11 @@ class IndexSchema:
         self.interner.release(key)
 
     # -- read helpers --------------------------------------------------------
+    def document(self, key: str) -> Optional[Dict[str, object]]:
+        with self._lock:
+            doc = self._documents.get(key)
+            return dict(doc) if doc is not None else None
+
     def num_docs(self) -> int:
         """Documents in the index (>= 1 indexed attribute)."""
         return self.interner.count
@@ -234,6 +249,28 @@ class IndexSchema:
                 self.device)
             self._valid_mask_cache = (key, mask)
             return mask
+
+    def doc_keys(self, docs: Sequence[int]) -> List[Optional[str]]:
+        return [self.interner.key_of(int(d)) for d in docs]
+
+    def memory_pools(self) -> Dict[str, int]:
+        """Host bytes by subsystem: vector stores and graphs, tag and
+        numeric structures, the text engine, the key interner. A device
+        mirror is not host memory and is not counted."""
+        pools = {"vector": 0, "tag": 0, "numeric": 0, "text": 0,
+                 "interner": 0}
+        with self._lock:
+            for a in self.attributes.values():
+                if a.kind in ("HNSW", "FLAT"):
+                    pools["vector"] += a.index.memory_bytes()
+                elif a.kind == "TAG":
+                    pools["tag"] += a.index.memory_bytes()
+                elif a.kind == "NUMERIC":
+                    pools["numeric"] += a.index.memory_bytes()
+            if self.text_engine is not None:
+                pools["text"] = self.text_engine.bytes_used()
+            pools["interner"] = self.interner.memory_bytes()
+        return pools
 
     def stats(self) -> Dict[str, object]:
         with self._lock:

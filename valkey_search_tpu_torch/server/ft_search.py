@@ -1,26 +1,25 @@
 """FT.SEARCH argument parsing, execution, and reply construction.
 
-Counterpart of valkey_search_tpu/server/ft_search.py (reference
+The port's own copy of valkey_search_tpu/server/ft_search.py (reference
 src/commands/ft_search_parser.cc, ft_search.cc SendReply, and content
-resolution). Argument parsing and reply shaping are copied; content
-resolution is the JAX package's without the parts that serve modules not
-ported yet (key expiry, the asynchronous mutation queue, text-query
-contention, JSON SORTBY projection).
+resolution: fetch document contents on reply, re-verify the predicate, drop
+stale keys, park on in-flight mutations of result keys), with its imports
+pointing into valkey_search_tpu_torch.
 """
 
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Tuple, Union
 
-from valkey_search_tpu_torch.runtime import config
 from valkey_search_tpu_torch.query import predicate as P
+from valkey_search_tpu_torch.runtime import config
+from valkey_search_tpu_torch.runtime.metrics import STATS
 from valkey_search_tpu_torch.query.search import (
     Neighbor,
     SearchParameters,
     SearchResponse,
     execute_search,
 )
-from valkey_search_tpu_torch.server import externalizer
 
 Value = Union[str, bytes, int, float]
 
@@ -167,31 +166,94 @@ def resolve_content(
     engine, schema, resp: SearchResponse, no_content: bool = False
 ) -> List[Tuple[Neighbor, Optional[Dict[str, Value]]]]:
     """Fetch current document contents and re-verify the predicate, dropping
-    keys deleted or changed since the search ran (reference
-    ProcessNeighborsForReply / PerformKeyContentionCheck,
-    index_schema.cc:1917). While the schema's mutation epoch is unchanged
-    every result key is provably current and only the fetch remains."""
-    if resp.epoch >= 0 and resp.epoch == schema.mutation_epoch:
-        if engine is None or no_content:
-            return [(nb, None) for nb in resp.neighbors]
-        rows = []
-        with engine._lock:
-            for nb in resp.neighbors:
-                doc = engine.keyspace.get(nb.key)
-                if doc:
-                    rows.append((nb, dict(doc)))
-        return rows
+    keys whose value changed since the snapshot search ran
+    (reference ProcessNeighborsForReply / PerformKeyContentionCheck,
+    index_schema.cc:1917). Result keys with an in-flight mutation park on
+    its completion first (bounded by a shared 250ms budget) — the
+    reference re-queues the query onto the mutation's waiting_queries
+    list and retries on completion."""
+    import time as _time
+
     ctx = P.EvalContext(schema)
     out = []
+    queue = getattr(engine, "_ingestion", None) if engine is not None else None
+    if (
+        resp.epoch >= 0
+        and resp.epoch == getattr(schema, "mutation_epoch", -2)
+        and (queue is None or not queue.pending())
+    ):
+        # nothing mutated since the snapshot: every result key is provably
+        # current (epoch check replaces the reference's per-key sequence
+        # comparison, index_schema.cc:1917) — except passive TTL expiry,
+        # which bumps no epoch until touched, so each key still gets the
+        # lazy-expiry probe. NOCONTENT skips the field fetch.
+        fast: List[Tuple[Neighbor, Optional[Dict[str, Value]]]] = []
+        no_ttls = (engine is not None
+                   and not engine._expiry and not engine._field_expiry)
+        if engine is not None and not no_content and no_ttls:
+            # batch content read: one lock for the whole window instead of
+            # two lock round-trips per row (hgetall + expiry probe were
+            # ~55% of a 10k-row aggregate's LOAD time)
+            # lru/lfu access bookkeeping only matters when an eviction
+            # policy can consult it; with noeviction (the default) the
+            # three dict ops per row are pure overhead on wide aggregates
+            track = (
+                str(config.get("search.maxmemory-policy")) != "noeviction"
+            )
+            with engine._lock:
+                ks = engine.keyspace
+                touch = engine._touch
+                for nb in resp.neighbors:
+                    doc = ks.get(nb.key)
+                    if doc:
+                        if track:
+                            touch(nb.key)
+                        fast.append((nb, dict(doc)))
+            return fast
+        for nb in resp.neighbors:
+            if engine is not None and engine._expire_if_due(nb.key):
+                continue
+            if engine is not None and not no_content:
+                fields = engine.hgetall(nb.key)
+                if not fields:
+                    continue  # deleted/expired since snapshot
+                fast.append((nb, fields))
+            else:
+                fast.append((nb, None))
+        return fast
+    park_deadline = _time.monotonic() + 0.25
     for nb in resp.neighbors:
+        still_pending = False
+        if queue is not None and queue.pending_for_key(schema, nb.key):
+            budget = park_deadline - _time.monotonic()
+            if budget > 0:
+                queue.wait_for_key(schema, nb.key, budget)
+                STATS.incr("queries_parked_on_mutations")
+            # the queue is blocked/backed up past the park budget: the
+            # index rows for this key are stale, so the index-side check
+            # below would pass values the keyspace no longer holds
+            still_pending = queue.pending_for_key(schema, nb.key)
         fields = engine.hgetall(nb.key) if engine is not None else None
         if fields is not None and not fields:
-            continue  # key deleted since the search
+            continue  # key deleted since snapshot
         if (
             resp.predicate is not None
             and not isinstance(resp.predicate, P.MatchAll)
             and nb.doc >= 0
         ):
+            if still_pending and fields is not None:
+                # revalidate against the fetched content, not the stale
+                # index (reference ProcessNeighborsForReply re-evaluates
+                # the predicate on the record; unparseable new content
+                # drops the key without recording a revalidation)
+                r = resp.predicate.matches_content(ctx, fields, nb.doc)
+                if r is None:
+                    continue
+                STATS.incr("predicate_revalidation")
+                if not r:
+                    continue
+                out.append((nb, fields))
+                continue
             try:
                 if not resp.predicate.matches(ctx, nb.doc):
                     continue
@@ -216,25 +278,120 @@ def _trim_results(resp: SearchResponse, sp: SearchParameters) -> None:
         resp.neighbors = resp.neighbors[:cap]
 
 
+def _contains_text(pred) -> bool:
+    if isinstance(pred, P.TextPredicate):
+        return True
+    if any(_contains_text(c) for c in getattr(pred, "children", [])):
+        return True
+    child = getattr(pred, "child", None)
+    return child is not None and _contains_text(child)
+
+
+def _check_not_dropped(engine, schema, sp: SearchParameters) -> None:
+    """A parked query whose index was dropped errors instead of answering
+    (reference ResolveContent step 2 / IsMarkedDestructing,
+    content_resolution.cc:29-35; drilled by
+    integration/test_fulltext_inflight_blocking.py
+    test_dropindex_with_blocked_queries)."""
+    if engine is None:
+        return
+    try:
+        current = engine.manager.get(sp.index_name, getattr(engine, "db", 0))
+    except Exception:
+        current = None
+    if current is not schema:
+        raise FTSearchError(f"Index with name '{sp.index_name}' not found")
+
+
+def _block_on_text_contention(engine, schema, sp, resp) -> SearchResponse:
+    """Text queries park on in-flight mutations of their result keys, then
+    RE-EXECUTE against the settled index (reference ResolveContent step 3 →
+    PerformKeyContentionCheck, content_resolution.cc:37-48,
+    index_schema.cc:1917-1941: postings have no per-key content
+    revalidation, so instead of postfiltering the query moves onto the
+    mutation's waiting_queries list and reruns on completion).
+    text_query_blocked_cnt counts first-time parks per query;
+    text_query_retry_cnt counts every park (metrics.h:153-154)."""
+    import time as _time
+
+    queue = getattr(engine, "_ingestion", None) if engine is not None else None
+    if queue is None or resp.predicate is None:
+        return resp
+    if not _contains_text(resp.predicate):
+        return resp
+    timeout_ms = sp.timeout_ms or int(config.get("search.timeout-ms"))
+    deadline = _time.monotonic() + timeout_ms / 1000.0
+    blocked = False
+    while True:
+        contended = next(
+            (
+                nb.key
+                for nb in resp.neighbors
+                if queue.pending_for_key(schema, nb.key)
+            ),
+            None,
+        )
+        if contended is None:
+            return resp
+        if not blocked:
+            STATS.incr("text_query_blocked")
+            blocked = True
+        STATS.incr("text_query_retry")
+        # park in bounded slices so FT.DROPINDEX and the deadline are
+        # noticed promptly (the reference's waiting_queries re-dispatch is
+        # event-driven; slices approximate it without an engine-wide hook)
+        while queue.pending_for_key(schema, contended):
+            budget = deadline - _time.monotonic()
+            if budget <= 0:
+                # degrade: fall through to postfilter revalidation rather
+                # than blocking past the query timeout
+                return resp
+            _check_not_dropped(engine, schema, sp)
+            queue.wait_for_key(schema, contended, min(0.05, budget))
+        _check_not_dropped(engine, schema, sp)
+        resp = execute_search(schema, sp)
+        _trim_results(resp, sp)
+
+
 def run_ft_search(engine, schema, sp: SearchParameters) -> list:
     """Execute and shape the reply: [count, key, [field, value, ...], ...]."""
+    from valkey_search_tpu_torch.server import externalizer
+
     resp = execute_search(schema, sp)
     _trim_results(resp, sp)
+    resp = _block_on_text_contention(engine, schema, sp, resp)
     if externalizer.index_serves_return_fields(schema, sp, resp):
-        # RETURN fields served straight from index state - no keyspace
+        # RETURN fields served straight from index state — no keyspace
         # fetch (reference MaybeAddIndexedContent, search.cc:497)
         rows = [
             (nb, externalizer.indexed_content(schema, sp, nb, resp))
             for nb in resp.neighbors
         ]
     else:
-        # SORTBY must fetch content even under NOCONTENT: the sort key
-        # comes from the document
+        # SORTBY must fetch content even under NOCONTENT — the sort key
+        # comes from the document (reference sorts resolved rows before
+        # shaping, ft_search.cc:189-250; NOCONTENT only affects the reply)
         rows = resolve_content(
             engine, schema, resp,
             no_content=sp.no_content and sp.sortby is None,
         )
+        augment_json_sortby(schema, sp, rows)
     return shape_reply(rows, resp, sp)
+
+
+def augment_json_sortby(schema, sp: SearchParameters, rows) -> None:
+    """ON JSON + SORTBY: Redisearch projects the sort field's resolved value
+    into the reply alongside '$' (oracle behavior)."""
+    if schema.on != "JSON" or sp.sortby is None:
+        return
+    attr = schema.attributes.get(sp.sortby)
+    for _nb, fields in rows:
+        if fields is None or sp.sortby in fields:
+            continue
+        ident = attr.identifier if attr is not None else sp.sortby
+        v = schema.data_type.fetch(fields, ident)
+        if v is not None:
+            fields[sp.sortby] = v if isinstance(v, str) else str(v)
 
 
 def shape_reply(
