@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Build the PyTorch/CUDA port's kernels and drive its FT.SEARCH and
-FT.AGGREGATE paths on one GPU.
+FT.AGGREGATE paths, its RESP server and its persistence on one GPU.
 
 Run from the root of a checkout, on a machine with an NVIDIA H100:
 
@@ -54,31 +54,59 @@ Phases (each failure exits non-zero; there is no CPU path):
    FILTER stages (no row outside the filter); the columnar
    GROUPBY over ~100,000 rows against np.unique (no scan launch), then the
    same request by the per-row route while HSETs land, and each route
-   timed; asynchronous ingestion of 100,000 rows (Engine(sync_ingest=False),
+   timed; asynchronous ingestion of 30,000 rows (Engine(sync_ingest=False),
    4 writers, drain(); FT.CREATE after the data and cron() until the
    backfill ends) against a synchronous engine, KNN 10 keys equal, HSETs
    per second of each; PEXPIRE on 100 returned keys (none returns from KNN
    or FT.AGGREGATE, before or after cron()), HDEL of a vector field, a
    multi() of 10 HSETs seen whole; INFO's reference field names and moved
    counters; FT._DEBUG PROFILE around one KNN batch (a non-empty trace).
+   Then the server phase on the same index (server_phase): RespServer
+   (port 0) over the slice's engine; FT.SEARCH KNN 10 for the 1,024 queries
+   over 16 RESP connections under int8 (K1, pre_shift > 0) and bfloat16
+   (K2): keys and distances equal to Engine.execute's (distances within
+   1e-5 of ||q||^2, keys that tie within rounding in either order or
+   across the 10th rank; under int8, whose query scale is the batch's,
+   >= 90% of replies equal and every shared key at the same distance),
+   recall@10 >= 0.99, fewer scan
+   launches than requests, no key outside @cat:{c7}; requests/s and p50 /
+   p99 beside Engine.execute's from 16 threads; HELLO 3 (a map, the same
+   reply); EVAL (a script's KNN does not see its own HSET, the next
+   script's finds it first at distance 0) and MULTI/EXEC of 10 HSETs and
+   one FT.SEARCH (none inside, all after); SAVE timed with the file's size,
+   Engine.load timed by stage (keyspace decode, non-vector replay, vector
+   sections, the rest) with the peak RSS, FT.INFO num_docs and 100 sampled
+   HGETALLs equal, the first KNN after the restore (full publish, int8
+   quantize) timed and its mirror on the card, replies equal to the saved
+   engine's (int8 where the scales are equal); BGSAVE by fork while the 16
+   connections search and a 17th writes: status ok, the child's wall time,
+   the parent's KNN during and after it, the file read whole and its
+   keyspace decoded (a pre-fork key present, a key written after BGSAVE
+   returned absent); and the op
+   journal: 5,000 rows over the wire with SAVE half way, a DEL and an
+   EXPIRE, then a new RespServer over a fresh engine boots from the
+   checkpoint and the journal with equal replies and the TTL rebased.
    Then (a) of the ivf phase on the 1M index (ivf_engine_route);
 5. hnsw     - (a) FT.CREATE ... VECTOR HNSW (M 16, EF_CONSTRUCTION 200) +
-              cat TAG and 100,000 HSETs (native inserts): FT.SEARCH KNN 10
+              cat TAG and 66,000 HSETs (native inserts): FT.SEARCH KNN 10
               EF_RUNTIME 100 from 16 threads on the scan route (pow2
               capacity 131,072: K1 at pre_shift 0, and K2), hybrid, DEL and
               update; then search.hnsw-scan-threshold 0: the AoS walk, the
               filtered SoA walk (inline) and the pre-filtered exact scan,
-              each checked by its counters (the inline-filtered walk on 32
+              each checked by its counters (the inline-filtered walk on 16
               queries: such a request walks alone). (b)
-              HnswVectorIndex.bulk_load of 500,000 rows under build-mode
+              HnswVectorIndex.bulk_load of 300,000 rows under build-mode
               device (candidate scan, prune,
               native bulk_build, bridging and publish timed); search_batch
               at B = 1,024 on the scan route (K1 at pre_shift > 0, K2) and
               the walk at ef 10, 50 and 100 beside the native walk over the
               same graph; the walk's device share under torch.profiler.
-              Then (a) of the ivf phase on the 100k HNSW index;
+              SAVE and Engine.load of that engine: the graph imported, the
+              walk at EF_RUNTIME 100 returning the same ids as before the
+              save, the first walk's graph upload timed. Then (a) of the
+              ivf phase on the 66k HNSW index;
 6. ivf      - (a) ivf_engine_route, on the slice's 1M FLAT index with
-              search.ivf-threshold 500,000 and on the 100k HNSW index with
+              search.ivf-threshold 500,000 and on the 66k HNSW index with
               50,000 (EF_RUNTIME 100): FT.SEARCH KNN 10 from 16 threads
               under int8 builds the IVF mirror once on the card and IVF
               serves every query, with no scan launch (the ivf_* counters);
@@ -153,19 +181,19 @@ BF16_FLOPS_PER_S = 989e12
 LIBRARY_BATCHES = (256, 1024)
 # the HNSW phase: the engine's index (pow2 capacity 131,072), the full-width
 # index, the batch and ef values of its searches, the native walk's queries
-N_HNSW = 100_000
-N_HNSW_BIG = 500_000
+N_HNSW = 66_000  # the capacity and kernels of 100,000 rows, in less time
+N_HNSW_BIG = 300_000  # the capacity (524,288) of 500,000, in less time
 HNSW_B = 1024
 HNSW_EF = 100
 HNSW_EFS = (10, 50, 100)
 N_NATIVE = 200
-N_SOA = 32  # queries of the engine's inline-filtered (SoA) walk
+N_SOA = 16  # queries of the engine's inline-filtered (SoA) walk
 # iterations between the walk's reads of its done flags, timed in turns
 CHECK_EVERY_CASES = (1, 2, 4, 8, 16)
 # the engine's walk routes are reported; this floor only catches breakage
 HNSW_WALK_FLOOR = 0.9
 # the IVF phase: search.ivf-threshold on the slice's 1M FLAT index and on
-# the 100k HNSW index (the default is 3,000,000), the engine routes' recall
+# the 66k HNSW index (the default is 3,000,000), the engine routes' recall
 # floor (8 blocks of ~2,048 cover too little at 1M for 0.99), the returned
 # keys deleted there; the full-width FLAT index, generated in seeded chunks
 # of IVF_CHUNK rows; its probes, batches and timed repetitions, and the small
@@ -204,7 +232,7 @@ AGG_QUERIES = 256
 AGG_CASES = (("int8", 0, "bucket_scan_i8_packed[pre_shift>0]", 0.94),
              ("int8", 1, "bucket_scan_i8_packed[pre_shift=0]", RECALL_FLOOR),
              ("bfloat16", 0, "bucket_scan_bf16", RECALL_FLOOR))
-N_ASYNC = 100_000
+N_ASYNC = 30_000
 ASYNC_WRITERS = 4
 N_EXPIRE = 100
 EXPIRE_MS = 200
@@ -250,6 +278,12 @@ INFO_MOVED = ("search_queries_total", "search_vector_queries",
               "search_aggregate_queries", "search_agg_group_by_stages",
               "search_agg_apply_stages", "search_agg_filter_stages",
               "search_agg_input_records")
+# the server phase's journal index (rows written over the wire, replayed);
+# the share of int8 replies that must equal those of another batching (the
+# query's int8 scale is its batch's, so a coalesced request may keep
+# another coarse survivor at its last ranks)
+N_JOURNAL = 5_000
+INT8_EQUAL = 0.9
 IVF_COUNTERS = ("ivf_mirror_builds", "ivf_served_searches",
                 "ivf_stage2_grouped", "ivf_stage2_steps")
 
@@ -810,9 +844,11 @@ def hybrid_mutations(engine, corpus, queries, gpu: str) -> None:
 # ---------------------------------------------------------------------------
 
 
-def execute_all(engine, argvs):
-    """Send every argv through Engine.execute from THREADS threads; returns
-    (the replies, per-request latencies in s, the wall time in s)."""
+def execute_all(engine, argvs, senders=None):
+    """Send every argv through Engine.execute from THREADS threads, or from
+    one thread for each callable of ``senders`` (a RESP connection's cmd);
+    returns (the replies, per-request latencies in s, the wall time in s)."""
+    senders = senders or [engine.execute] * THREADS
     n = len(argvs)
     replies = [None] * n
     lat = [0.0] * n
@@ -820,15 +856,15 @@ def execute_all(engine, argvs):
 
     def worker(tid: int) -> None:
         try:
-            for i in range(tid, n, THREADS):
+            for i in range(tid, n, len(senders)):
                 t0 = time.perf_counter()
-                replies[i] = engine.execute(*argvs[i])
+                replies[i] = senders[tid](*argvs[i])
                 lat[i] = time.perf_counter() - t0
         except Exception as exc:  # reported below; the phase fails
             errors.append(repr(exc))
 
     threads = [threading.Thread(target=worker, args=(t,))
-               for t in range(THREADS)]
+               for t in range(len(senders))]
     t0 = time.perf_counter()
     for t in threads:
         t.start()
@@ -1290,6 +1326,587 @@ def aggregate_phase(torch, bs, gpu: str, engine, corpus, queries, cats,
     return out
 
 
+# ---------------------------------------------------------------------------
+# the server phase: the RESP server over the slice's 1M index, SAVE and a
+# timed restore, BGSAVE by fork with the CUDA context live, the op journal
+# ---------------------------------------------------------------------------
+
+
+class ReplyError(RuntimeError):
+    pass
+
+
+class Resp:
+    """A minimal binary-safe RESP2/RESP3 client (the card's machine has no
+    redis client): one connection, one reply per ``cmd``; an error reply
+    raises ``ReplyError``."""
+
+    def __init__(self, port: int):
+        import socket
+
+        self.sock = socket.create_connection(("127.0.0.1", port), timeout=300)
+        self.f = self.sock.makefile("rwb")
+
+    def close(self) -> None:
+        try:
+            self.f.close()
+        finally:
+            self.sock.close()
+
+    def cmd(self, *argv):
+        out = [b"*%d\r\n" % len(argv)]
+        for a in argv:
+            a = a.encode() if isinstance(a, str) else bytes(a)
+            out.append(b"$%d\r\n%s\r\n" % (len(a), a))
+        self.f.write(b"".join(out))
+        self.f.flush()
+        reply = self.read()
+        if isinstance(reply, ReplyError):
+            raise reply
+        return reply
+
+    def read(self):
+        line = self.f.readline()
+        if not line:
+            raise EOFError("connection closed")
+        kind, rest = line[:1], line[1:-2]
+        if kind == b"+":
+            return rest.decode()
+        if kind == b"-":
+            return ReplyError(rest.decode())
+        if kind == b":":
+            return int(rest)
+        if kind == b"$":
+            n = int(rest)
+            return None if n < 0 else self.f.read(n + 2)[:-2]
+        if kind in (b"*", b">"):
+            return [self.read() for _ in range(int(rest))]
+        if kind == b"%":
+            return {self.read(): self.read() for _ in range(int(rest))}
+        if kind == b"_":
+            return None
+        if kind == b",":
+            return float(rest)
+        if kind == b"#":
+            return rest == b"t"
+        raise ReplyError(f"unknown reply {line!r}")
+
+
+def _text(v):
+    return v.decode() if isinstance(v, bytes) else v
+
+
+def _knn_argv(index: str, flt: str, q: np.ndarray, k: int = K):
+    return ("FT.SEARCH", index, knn(flt, k), "PARAMS", "2", "q", q.tobytes(),
+            "RETURN", "1", "__v_score")
+
+
+def _keys_dists(reply):
+    """(keys, distances) of a KNN reply with RETURN 1 __v_score."""
+    keys = [_text(k) for k in reply[1::2]]
+    return keys, [float(_text(row[1])) for row in reply[2::2]]
+
+
+def knn_all(engine, queries: np.ndarray, flt: str = "*", conns=None):
+    """FT.SEARCH idx KNN 10 for every query through Engine.execute from
+    THREADS threads, or over ``conns``, one thread each; returns (each
+    reply's (keys, distances), per-request latencies in s, wall s)."""
+    replies, lat, wall = execute_all(
+        engine, [_knn_argv("idx", flt, q) for q in queries],
+        conns and [c.cmd for c in conns])
+    return [_keys_dists(r) for r in replies], lat, wall
+
+
+def same_replies(got, want, queries, what: str,
+                 min_equal: float = 1.0) -> dict:
+    """Each request's reply against ``want``'s. A distance is ||q||^2 +
+    ||c||^2 - 2 q.c in f32 whose product a batch of another size may round
+    otherwise, so a key both replies hold has the same distance within 1e-5
+    of ||q||^2 (the bound the slice's update check uses), and a reply is
+    equal when its keys are in the same order, or when its distances are
+    the same within twice that bound (keys that tie within rounding, in
+    another order or across the k-th rank). At least ``min_equal`` of the
+    requests are equal: 1 under bfloat16; under int8 the query's
+    quantization scale is its batch's (in both packages), so a request
+    coalesced with others may keep another coarse survivor at its last
+    ranks. Fails otherwise."""
+    equal = ties = differ = 0
+    first = None
+    for i, ((gk, gd), (wk, wd)) in enumerate(zip(got, want)):
+        tol = 1e-5 * float(queries[i] @ queries[i])
+        for key in set(gk) & set(wk):
+            check(abs(gd[gk.index(key)] - wd[wk.index(key)]) <= tol,
+                  f"{what}: request {i}: {key} at {gd[gk.index(key)]} != "
+                  f"{wd[wk.index(key)]}")
+        if gk == wk:
+            equal += 1
+        elif len(gd) == len(wd) and np.allclose(sorted(gd), sorted(wd),
+                                                rtol=0, atol=2 * tol):
+            ties += 1
+        else:
+            differ += 1
+            first = first or {"request": i, "keys": gk, "dists": gd,
+                              "want_keys": wk, "want_dists": wd}
+    share = (equal + ties) / len(want)
+    check(share >= min_equal, f"{what}: {differ} of {len(want)} replies "
+          f"differ ({share:.4f} equal, at least {min_equal} wanted; the "
+          f"first {first})")
+    return {"equal": equal, "ties": ties, "differ": differ}
+
+
+def counted(bs, launches: dict, fn):
+    """Run ``fn`` with the launch counts set to 0 just before; add the
+    counts read just after into ``launches``; returns (fn's value, counts)."""
+    bs.reset_launches()
+    value = fn()
+    counts = bs.launch_counts()
+    _merge_launches(launches, counts)
+    return value, counts
+
+
+def wire_phase(torch, bs, gpu, srv, engine, conns, queries, cats, gt,
+               launches: dict) -> dict:
+    """KNN over 16 RESP connections under int8 (K1b) and bfloat16 (K2):
+    equal to Engine.execute, recall, coalesced launches, a hybrid filter;
+    then RESP3, EVAL and MULTI/EXEC."""
+    out = {}
+    qs = queries[:N_QUERIES]
+    kernels = (("int8", "bucket_scan_i8_packed[pre_shift>0]"),
+               ("bfloat16", "bucket_scan_bf16"))
+    for dtype, kernel in kernels:
+        engine.config_set("search.corpus-dtype", dtype)
+        engine.execute(*_knn_argv("idx", "*", qs[0]))  # publish (not timed)
+        (wire, lat, wall), counts = counted(
+            bs, launches, lambda: knn_all(engine, qs, conns=conns))
+        n_launch = sum(counts.values())
+        (want, dlat, dwall), _ = counted(
+            bs, launches, lambda: knn_all(engine, qs))
+        same = same_replies(wire, want, qs, f"wire/{dtype}",
+                            INT8_EQUAL if dtype == "int8" else 1.0)
+        r = recall([keys for keys, _ in wire[:len(gt)]], gt)
+        (hyb, _, _), hcounts = counted(
+            bs, launches, lambda: knn_all(engine, qs[:N_GT], "@cat:{c7}",
+                                          conns))
+        outside = sum(1 for keys, _ in hyb for key in keys
+                      if cats[int(key[4:])] != 7)
+        mirror = engine.manager.get("idx").attribute("v").index.store._device
+        rec = {"i8_scale": float(mirror["i8_scale"]) if dtype == "int8"
+               else None,
+               "requests_per_s": len(qs) / wall,
+               "p50_ms": float(np.percentile(lat, 50) * 1e3),
+               "p99_ms": float(np.percentile(lat, 99) * 1e3),
+               "execute_requests_per_s": len(qs) / dwall,
+               "execute_p50_ms": float(np.percentile(dlat, 50) * 1e3),
+               "execute_p99_ms": float(np.percentile(dlat, 99) * 1e3),
+               "recall": r, "launches": n_launch, "same": same,
+               "hybrid_outside": outside, "replies": want}
+        log(f"RESP {dtype}: {len(qs)} KNN 10 over {len(conns)} connections "
+            f"{rec['requests_per_s']:.1f} requests/s, p50 "
+            f"{rec['p50_ms']:.3f} ms, p99 {rec['p99_ms']:.3f} ms (Engine."
+            f"execute from {THREADS} threads: "
+            f"{rec['execute_requests_per_s']:.1f} requests/s, p50 "
+            f"{rec['execute_p50_ms']:.3f} ms, p99 "
+            f"{rec['execute_p99_ms']:.3f} ms); replies equal to execute's "
+            f"{same}; recall@{K} {r:.4f}; {n_launch} scan launches "
+            f"{counts}; @cat:{{c7}} over the wire: {outside} keys outside, "
+            f"launches {hcounts}", gpu)
+        check(counts.get(kernel, 0) > 0, f"wire/{dtype}: {kernel} idle")
+        check(n_launch < len(qs), f"wire/{dtype}: {n_launch} launches for "
+              f"{len(qs)} requests: the batcher did not coalesce")
+        check(r >= RECALL_FLOOR, f"wire/{dtype}: recall {r}")
+        check(outside == 0, f"wire/{dtype}: {outside} keys outside c7")
+        out[dtype] = rec
+
+    # RESP3: HELLO 3 answers a map; the same search, the same reply
+    c3 = Resp(srv.port)
+    try:
+        hello = c3.cmd("HELLO", "3")
+        got3 = _keys_dists(c3.cmd(*_knn_argv("idx", "*", qs[0])))
+    finally:
+        c3.close()
+    check(isinstance(hello, dict) and hello.get(b"proto") == 3,
+          f"HELLO 3: {hello}")
+    check(got3 == out["bfloat16"]["replies"][0], "RESP3 reply differs")
+
+    # EVAL: a script that HSETs a key and runs a KNN; the index sees the
+    # script's writes when it ends (as EXEC's, in both packages), so the
+    # next script's KNN finds the key first, at distance 0
+    c = conns[0]
+    key, probe = f"doc:{N_BIG + 1}", queries[-3]
+    script = ("redis.call('HSET', KEYS[1], 'v', ARGV[1], 'cat', 'c7', "
+              "'price', '1')\nreturn redis.call('FT.SEARCH', 'idx', "
+              "'*=>[KNN 10 @v $q]', 'PARAMS', '2', 'q', ARGV[1], 'RETURN', "
+              "'1', '__v_score')")
+    inside, _ = _keys_dists(c.cmd("EVAL", script, "1", key, probe.tobytes()))
+    after, dist = _keys_dists(c.cmd(
+        "EVAL", "return redis.call('FT.SEARCH', 'idx', '*=>[KNN 10 @v $q]',"
+        " 'PARAMS', '2', 'q', ARGV[1], 'RETURN', '1', '__v_score')", "0",
+        probe.tobytes()))
+    log(f"EVAL: HSET {key} + KNN in one script: key in its KNN {key in inside}"
+        f"; the next script's KNN: {after[0]} at {dist[0]}", gpu)
+    check(key not in inside, "EVAL: a script's KNN saw its own write")
+    check(after[0] == key and abs(dist[0]) <= 1e-5 * float(probe @ probe),
+          f"EVAL: {key} not first at distance 0 ({after[0]}, {dist[0]})")
+
+    # MULTI/EXEC of 10 HSETs and one FT.SEARCH: seen whole after EXEC
+    tx = [f"doc:{N_BIG + 10 + j}" for j in range(10)]
+    check(c.cmd("MULTI") == "OK", "MULTI")
+    for j, k in enumerate(tx):
+        c.cmd("HSET", k, "v", queries[-4 - j].tobytes(), "cat", "srvtx",
+              "price", "1")
+    c.cmd("FT.SEARCH", "idx", "@cat:{srvtx}", "NOCONTENT")
+    res = c.cmd("EXEC")
+    seen = c.cmd("FT.SEARCH", "idx", "@cat:{srvtx}", "NOCONTENT")
+    log(f"MULTI/EXEC: 10 HSETs {res[:10]}, the FT.SEARCH inside saw "
+        f"{res[10][0]}, after EXEC {seen[0]}", gpu)
+    check(res[:10] == [3] * 10 and res[10][0] == 0 and seen[0] == 10,
+          f"MULTI/EXEC not seen whole: {res}, {seen[0]}")
+    check(c.cmd("DEL", key, *tx) == 11, "DEL of the EVAL and MULTI keys")
+    return out
+
+
+class _RssPeak:
+    """The peak resident set of this process while the block runs, sampled
+    every 10 ms from /proc/self/statm."""
+
+    def __enter__(self):
+        self._page = os.sysconf("SC_PAGE_SIZE")
+        self.before = self.peak = self._rss()
+        self._stop = threading.Event()
+        self._t = threading.Thread(target=self._run, daemon=True)
+        self._t.start()
+        return self
+
+    def _rss(self) -> int:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * self._page
+
+    def _run(self) -> None:
+        while not self._stop.wait(0.01):
+            self.peak = max(self.peak, self._rss())
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._t.join(5)
+        self.peak = max(self.peak, self._rss())
+
+
+def timed_load(path: str):
+    """Engine.load with its stages timed (keyspace decode, non-vector
+    replay, vector sections; the rest is reading the file and creating the
+    schemas) and the peak RSS while it runs; returns (engine, record)."""
+    from valkey_search_tpu_torch.persistence import checkpoint as ck
+    from valkey_search_tpu_torch.server.engine import Engine
+
+    stages = {"keyspace_decode_s": 0.0, "nonvector_replay_s": 0.0,
+              "vector_sections_s": 0.0}
+    names = {"_decode_keyspace": "keyspace_decode_s",
+             "_replay_nonvector": "nonvector_replay_s",
+             "_restore_vector_attr": "vector_sections_s"}
+    real = {name: getattr(ck, name) for name in names}
+
+    def timer(name):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return real[name](*args, **kwargs)
+            finally:
+                stages[names[name]] += time.perf_counter() - t0
+        return run
+
+    for name in names:
+        setattr(ck, name, timer(name))
+    try:
+        with _RssPeak() as rss:
+            t0 = time.perf_counter()
+            engine = Engine.load(path)
+            total = time.perf_counter() - t0
+    finally:
+        for name, fn in real.items():
+            setattr(ck, name, fn)
+    rec = dict(stages, load_s=total,
+               read_and_other_s=total - sum(stages.values()),
+               rss_before_gib=rss.before / 2**30,
+               rss_peak_gib=rss.peak / 2**30)
+    return engine, rec
+
+
+def save_phase(torch, bs, gpu, engine, conns, queries, gt, tmp, wire,
+               launches: dict) -> dict:
+    """SAVE over the wire, Engine.load timed by stage with the peak RSS, the
+    first KNN after the restore (full publish and quantize), and the
+    restored engine's replies against the saved engine's."""
+    path = os.path.join(tmp, "ckpt.vstpu")
+    t0 = time.perf_counter()
+    check(conns[0].cmd("SAVE", path) == "OK", "SAVE")
+    out = {"save_s": time.perf_counter() - t0,
+           "file_gib": os.path.getsize(path) / 2**30}
+    restored, out["restore"] = timed_load(path)
+    log(f"SAVE {out['save_s']:.2f} s, {out['file_gib']:.3f} GiB; Engine.load "
+        f"{out['restore']}", gpu)
+    info = [e.execute("FT.INFO", "idx") for e in (engine, restored)]
+    docs = [i[i.index("num_docs") + 1] for i in info]
+    sample = [f"doc:{i}" for i in np.random.default_rng(3).choice(
+        N_BIG, 100, replace=False)]
+    diff = sum(engine.execute("HGETALL", k) != restored.execute("HGETALL", k)
+               for k in sample)
+    log(f"restored num_docs {docs[1]} (saved {docs[0]}); HGETALL of 100 "
+        f"sampled keys: {diff} differ", gpu)
+    check(docs[0] == docs[1] and diff == 0, "restored keyspace differs")
+    st = restored.manager.get("idx").attribute("v").index.store
+    check(st._device is None, "a restored store holds a device mirror")
+    qs = queries[:N_QUERIES]
+    for dtype, kernel in (("int8", "bucket_scan_i8_packed[pre_shift>0]"),
+                          ("bfloat16", "bucket_scan_bf16")):
+        engine.config_set("search.corpus-dtype", dtype)
+        t0 = time.perf_counter()
+        restored.execute(*_knn_argv("idx", "*", qs[0]))
+        first_ms = (time.perf_counter() - t0) * 1e3
+        check(st._device["vectors"].device.type == "cuda",
+              "the restore did not publish to the card")
+        (got, _, wall), counts = counted(
+            bs, launches, lambda: knn_all(restored, qs))
+        check(counts.get(kernel, 0) > 0, f"restored/{dtype}: {kernel} idle")
+        r = recall([keys for keys, _ in got[:len(gt)]], gt)
+        rec = {"first_knn_ms": first_ms, "requests_per_s": len(qs) / wall,
+               "recall": r}
+        if dtype == "int8":
+            scales = (float(st._device["i8_scale"]), wire["int8"]["i8_scale"])
+            rec["i8_scales"] = scales
+            equal_scale = scales[0] == scales[1]
+        if dtype == "bfloat16" or equal_scale:
+            rec["same"] = same_replies(
+                got, wire[dtype]["replies"], qs, f"restored/{dtype}",
+                INT8_EQUAL if dtype == "int8" else 1.0)
+        log(f"restored {dtype}: first KNN (publish"
+            f"{' + quantize' if dtype == 'int8' else ''}) {first_ms:.1f} ms; "
+            f"{len(qs)} KNN from {THREADS} threads "
+            f"{rec['requests_per_s']:.1f} requests/s, recall@{K} {r:.4f}, "
+            f"replies against the saved engine's {rec.get('same')}"
+            + (f"; scales {rec['i8_scales']}" if dtype == "int8" else ""),
+            gpu)
+        check(r >= RECALL_FLOOR, f"restored/{dtype}: recall {r}")
+        out[dtype] = rec
+    del restored, st
+    torch.cuda.empty_cache()
+    os.remove(path)
+    return out
+
+
+def bgsave_phase(torch, bs, gpu, srv, engine, conns, corpus, queries, tmp,
+                 launches: dict) -> dict:
+    """BGSAVE by fork while the 16 connections keep searching and a 17th
+    keeps writing: the child's status, its wall time, the parent's searches
+    during it, and the file's point in time (a key written after BGSAVE
+    returned is absent, a key from before is present)."""
+    from valkey_search_tpu_torch.persistence import checkpoint as ck
+    from valkey_search_tpu_torch.persistence.format import ChunkReader
+
+    path = os.path.join(tmp, "bg.vstpu")
+    qs = queries[:N_QUERIES]
+    stop, errors = threading.Event(), []
+    served = [0] * len(conns)
+    written = []
+
+    def searcher(tid: int) -> None:
+        try:
+            i = tid
+            while not stop.is_set():
+                conns[tid].cmd(*_knn_argv("idx", "*", qs[i % len(qs)]))
+                served[tid] += 1
+                i += len(conns)
+        except Exception as exc:  # reported below; the phase fails
+            errors.append(repr(exc))
+
+    def writer() -> None:
+        w = Resp(srv.port)
+        try:
+            j = 0
+            while not stop.is_set():
+                key = f"doc:{N_BIG + 100 + j}"
+                w.cmd("HSET", key, "v", (corpus[j] + 0.5).tobytes(),
+                      "cat", "c1", "price", "5")
+                written.append(key)
+                j += 1
+        except Exception as exc:  # reported below; the phase fails
+            errors.append(repr(exc))
+        finally:
+            w.close()
+
+    engine.config_set("search.corpus-dtype", "bfloat16")
+    c = Resp(srv.port)
+    threads = [threading.Thread(target=searcher, args=(i,))
+               for i in range(len(conns))] + [threading.Thread(target=writer)]
+    bs.reset_launches()
+    for th in threads:
+        th.start()
+    try:
+        deadline = time.monotonic() + 60
+        while sum(served) < 4 * len(conns) or len(written) < 16:
+            check(time.monotonic() < deadline and not errors,
+                  f"traffic did not start: {errors[:3]}")
+            time.sleep(0.01)
+        pre_key = written[0]
+        t0 = time.perf_counter()
+        reply = c.cmd("BGSAVE", path)
+        post_key = f"doc:{N_BIG + 99}"
+        c.cmd("HSET", post_key, "v", queries[-20].tobytes(), "cat", "c1")
+        at_fork, writes_at_fork = sum(served), len(written)
+        while srv.bgsave_status == "in-progress":
+            check(time.perf_counter() - t0 < 600, "BGSAVE child hung")
+            time.sleep(0.01)
+        child_s = time.perf_counter() - t0
+        during = sum(served) - at_fork
+        writes_during = len(written) - writes_at_fork
+        time.sleep(0.2)  # the parent serves on after the child
+    finally:
+        stop.set()
+        for th in threads:
+            th.join(120)
+    counts = bs.launch_counts()
+    _merge_launches(launches, counts)
+    after = sum(served) - at_fork - during
+    check(not errors, f"traffic during BGSAVE failed: {errors[:3]}")
+    check(reply == "Background saving started", f"BGSAVE: {reply}")
+    log(f"BGSAVE by fork: status {srv.bgsave_status}, child {child_s:.2f} s; "
+        f"the parent served {during} KNN and {writes_during} HSETs during it"
+        f" ({during / child_s:.1f} KNN/s) and {after} after; launches "
+        f"{counts}", gpu)
+    check(srv.bgsave_status == "ok", f"BGSAVE child: {srv.bgsave_status}")
+    check(during > 0 and after > 0, "the parent stopped serving")
+    check(counts.get("bucket_scan_bf16", 0) > 0, "no K2 launch during BGSAVE")
+    # the file read whole to its end marker, its keyspace decoded (a full
+    # Engine.load of the same format is timed in the SAVE step above)
+    t0 = time.perf_counter()
+    tracked = None
+    with ChunkReader(path) as reader:
+        for meta, arrays in reader.sections():
+            if meta["type"] == "keyspace":
+                snap = ck._decode_keyspace(arrays[0])
+            elif meta["type"] == "vector":
+                tracked = meta["tracked_count"]
+    read_s = time.perf_counter() - t0
+    pre = snap.get(pre_key)
+    log(f"bg.vstpu read in {read_s:.1f} s: {len(snap)} keys, {tracked} "
+        f"vectors; pre-fork {pre_key} {'present' if pre else 'absent'}, "
+        f"post-fork {post_key} {'present' if post_key in snap else 'absent'}",
+        gpu)
+    check(pre is not None and pre == engine.keyspace.get(pre_key),
+          "pre-fork key lost")
+    check(post_key not in snap, "post-fork key in the snapshot")
+    del snap
+    os.remove(path)
+    check(c.cmd("DEL", post_key, *written) == len(written) + 1, "DEL writes")
+    c.close()
+    return {"child_s": child_s, "served_during": during,
+            "writes_during": writes_during, "served_after": after,
+            "knn_per_s_during": during / child_s, "read_s": read_s}
+
+
+def journal_phase(gpu, corpus, queries, cats, tmp) -> dict:
+    """search.journal-path and search.checkpoint-path set: N_JOURNAL rows over
+    the wire with a SAVE half way, a DEL and an EXPIRE; the server closes
+    and a new one boots over a fresh engine (checkpoint + journal replay),
+    answering the same FT.SEARCH replies with the TTL rebased."""
+    from valkey_search_tpu_torch.persistence.journal import read_records
+    from valkey_search_tpu_torch.runtime import config
+    from valkey_search_tpu_torch.server.engine import Engine
+    from valkey_search_tpu_torch.server.resp import RespServer
+
+    n = N_JOURNAL
+    names = ("search.journal-path", "search.checkpoint-path")
+    saved = {name: config.get(name) for name in names}
+    jdir = os.path.join(tmp, "journal")
+    os.makedirs(jdir)
+    config.set_config("search.journal-path", os.path.join(jdir, "ops.journal"))
+    config.set_config("search.checkpoint-path", os.path.join(jdir, "c.vstpu"))
+    probes = [("*", q) for q in queries[:48]] + [
+        ("@cat:{c7}", q) for q in queries[48:64]]
+    try:
+        srv = RespServer(Engine(), port=0).start()
+        c = Resp(srv.port)
+        try:
+            c.cmd("FT.CREATE", "jidx", "ON", "HASH", "PREFIX", "1", "j:",
+                  "SCHEMA", "v", "VECTOR", "FLAT", "6", "TYPE", "FLOAT32",
+                  "DIM", str(D), "DISTANCE_METRIC", "L2", "cat", "TAG")
+            t0 = time.perf_counter()
+            for i in range(n):
+                if i == n // 2:
+                    check(c.cmd("SAVE") == "OK", "SAVE (journal)")
+                c.cmd("HSET", f"j:{i}", "v", corpus[i].tobytes(),
+                      "cat", f"c{cats[i]}")
+            write_s = time.perf_counter() - t0
+            check(c.cmd("DEL", "j:3") == 1 and c.cmd("EXPIRE", "j:4",
+                                                     "1000") == 1, "DEL")
+            before = [_keys_dists(c.cmd(*_knn_argv("jidx", f, q)))
+                      for f, q in probes]
+        finally:
+            c.close()
+            srv.close()
+        records = sum(1 for _ in read_records(
+            os.path.join(jdir, "ops.journal")))
+        t0 = time.perf_counter()
+        srv = RespServer(Engine(), port=0).start()
+        boot_s = time.perf_counter() - t0
+        c = Resp(srv.port)
+        try:
+            after = [_keys_dists(c.cmd(*_knn_argv("jidx", f, q)))
+                     for f, q in probes]
+            ttl = float(_text(c.cmd("TTL", "j:4")))
+            gone = c.cmd("EXISTS", "j:3")
+            count = c.cmd("FT.SEARCH", "jidx", "*", "NOCONTENT", "LIMIT",
+                          "0", "0")[0]
+        finally:
+            c.close()
+            srv.close()
+    finally:
+        for name, value in saved.items():
+            config.set_config(name, value)
+    log(f"journal: {n} HSETs over the wire in {write_s:.2f} s (SAVE half "
+        f"way; {records} records left in the journal); boot (checkpoint"
+        f" + replay) {boot_s:.2f} s; {count} docs; "
+        f"{sum(a == b for a, b in zip(after, before))} of {len(probes)} "
+        f"replies equal; j:3 exists {gone}; TTL of j:4 "
+        f"{ttl:.3f} s", gpu)
+    check(count == n - 1 and gone == 0, "journal replay lost a write")
+    check(after == before, "replies after the replay differ")
+    check(990 < ttl <= 1000, f"TTL not rebased: {ttl}")
+    return {"hset_s": write_s, "boot_s": boot_s, "records": records,
+            "ttl": ttl}
+
+
+def server_phase(torch, bs, gpu, engine, corpus, queries, cats,
+                 launches: dict) -> dict:
+    from valkey_search_tpu_torch.server.resp import RespServer
+
+    # the ground truth over the rows live now (the aggregate phase expired,
+    # deleted and rewrote some of the first queries' neighbours), as keys
+    index = engine.manager.get("idx").attribute("v").index
+    gt = live_gt_keys(torch, index, queries[:N_GT], index.store.device)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_server_")
+    out = {}
+    try:
+        srv = RespServer(engine, port=0).start()
+        conns = [Resp(srv.port) for _ in range(THREADS)]
+        try:
+            wire = wire_phase(torch, bs, gpu, srv, engine, conns, queries,
+                              cats, gt, launches)
+            out["save"] = save_phase(torch, bs, gpu, engine, conns, queries,
+                                     gt, tmp, wire, launches)
+            out["bgsave"] = bgsave_phase(torch, bs, gpu, srv, engine, conns,
+                                         corpus, queries, tmp, launches)
+        finally:
+            for conn in conns:
+                conn.close()
+            srv.close()
+        for rec in wire.values():
+            rec.pop("replies")
+        out["wire"] = wire
+        out["journal"] = journal_phase(gpu, corpus, queries, cats, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
 
 def slice_phase(torch, bs, dev, gpu: str) -> dict:
     from valkey_search_tpu_torch.server.engine import Engine
@@ -1390,6 +2007,10 @@ def slice_phase(torch, bs, dev, gpu: str) -> dict:
         torch, bs, gpu, engine, corpus, queries, cats, prices, agg_filters,
         gt_agg, stats["launches"])
     log(f"aggregate phase {time.perf_counter() - t_agg:.1f} s", gpu)
+    t_srv = time.perf_counter()
+    stats["server"] = server_phase(torch, bs, gpu, engine, corpus, queries,
+                                   cats, stats["launches"])
+    log(f"server phase {time.perf_counter() - t_srv:.1f} s", gpu)
 
     # DEL 1,000 returned keys; none may come back under either dtype
     # (of those the aggregate phase's expiry left in the keyspace)
@@ -1568,6 +2189,7 @@ def hnsw_engine(torch, bs, dev, gpu: str, corpus, queries, cats,
         if route == "soa":
             check(moved["vector_searches_inline_filtered"] > 0,
                   f"{flt}: not inline")
+    stats["restore"] = hnsw_restore(torch, engine, qs, gpu)
     engine.config_set("search.hnsw-scan-threshold", str(1 << 30))
     # (a) IVF through the engine on this index: its live rows are nodes
     gt_live = fp64_gt(torch, c64, csq, qs, K, dev, live)
@@ -1577,6 +2199,48 @@ def hnsw_engine(torch, bs, dev, gpu: str, corpus, queries, cats,
         queries[-9], IVF_HNSW_THRESHOLD, k1_fused, gpu, ef=ef)
     del c64, csq, engine, index
     torch.cuda.empty_cache()
+
+
+def hnsw_restore(torch, engine, qs, gpu: str) -> dict:
+    """SAVE and restore the HNSW engine: the graph is imported (no
+    re-insert), and with search.hnsw-scan-threshold 0 the walk at EF_RUNTIME
+    HNSW_EF returns the same ids as before the save on the same queries."""
+    from valkey_search_tpu_torch.server.engine import Engine
+
+    engine.config_set("search.hnsw-scan-threshold", "0")
+    engine.config_set("search.corpus-dtype", "int8")
+    index = engine.manager.get("hidx").attribute("v").index
+    _, before = index.search_batch(qs[:N_GT], K, ef=HNSW_EF)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_hnsw_")
+    try:
+        path = os.path.join(tmp, "hnsw.vstpu")
+        t0 = time.perf_counter()
+        engine.save(path)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = Engine.load(path)
+        load_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    bidx = back.manager.get("hidx").attribute("v").index
+    check(bidx._device_graph is None and bidx.builder.count
+          == index.builder.count, "the restored graph")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bidx.device_graph()
+    torch.cuda.synchronize()
+    upload_ms = (time.perf_counter() - t0) * 1e3
+    _, after = bidx.search_batch(qs[:N_GT], K, ef=HNSW_EF)
+    same = float(np.mean(np.all(after == before, axis=1)))
+    log(f"hidx SAVE {save_s:.2f} s, restore {load_s:.2f} s "
+        f"({bidx.builder.count} graph nodes imported, no insert), first "
+        f"walk's graph upload "
+        f"{upload_ms:.1f} ms; walk at ef {HNSW_EF} on {N_GT} queries: "
+        f"{same:.4f} of rows the same ids as before the save", gpu)
+    check(same == 1.0, f"the restored walk differs on {1 - same:.4f} of rows")
+    del back, bidx
+    return {"save_s": save_s, "restore_s": load_s,
+            "graph_upload_ms": upload_ms}
 
 
 def _device_share(torch, fn, ranges: str = "") -> dict:

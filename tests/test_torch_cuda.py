@@ -438,3 +438,79 @@ def test_ivf_build_and_engine_route_on_the_card(dev):
         assert index.interner.key_of(int(ids2[5, 0])) == "k7"
         assert abs(d2[5, 0]) <= 1e-5 * float(q[5] @ q[5])
         assert STATS.get("ivf_mirror_builds") - builds == 1
+
+
+def _flat_engine(rows, dtype):
+    from valkey_search_tpu_torch.server.engine import Engine
+
+    e = Engine()
+    e.config_set("search.corpus-dtype", dtype)
+    e.execute("FT.CREATE", "i", "SCHEMA", "v", "VECTOR", "FLAT", "6", "TYPE",
+              "FLOAT32", "DIM", str(rows.shape[1]), "DISTANCE_METRIC", "L2")
+    for i, v in enumerate(rows):
+        e.execute("HSET", f"k{i}", "v", v.tobytes())
+    return e
+
+
+def _knn_replies(engine, queries):
+    return [engine.execute("FT.SEARCH", "i", "*=>[KNN 10 @v $q]", "PARAMS",
+                           "2", "q", q.tobytes(), "RETURN", "1", "__v_score")
+            for q in queries]
+
+
+@pytest.mark.cuda
+def test_forked_bgsave_after_a_launch_on_the_card(dev, tmp_path):
+    """BGSAVE forks a process that holds a CUDA context after K2 has
+    launched in it: the child writes the checkpoint from host arrays alone
+    and exits 0, the file restores to equal bfloat16 replies, and the
+    parent's next KNN launches again."""
+    import time
+
+    from valkey_search_tpu_torch.server.engine import Engine
+    from valkey_search_tpu_torch.server.resp import RespServer
+
+    rng = np.random.default_rng(21)
+    rows = rng.standard_normal((140_000, 64)).astype(np.float32)
+    queries = rows[:32] + 0.01
+    saved = config.get("search.corpus-dtype")
+    try:
+        e = _flat_engine(rows, "bfloat16")
+        bs.reset_launches()
+        before = _knn_replies(e, queries)
+        assert bs.launch_counts().get("bucket_scan_bf16", 0) > 0
+        srv = RespServer(e, port=0)
+        path = str(tmp_path / "fork.vstpu")
+        srv.bgsave_forked(path)
+        deadline = time.monotonic() + 120
+        while srv.bgsave_pid is not None and time.monotonic() < deadline:
+            time.sleep(0.05)
+        assert srv.bgsave_status == "ok"
+        bs.reset_launches()
+        assert _knn_replies(e, queries) == before
+        assert bs.launch_counts().get("bucket_scan_bf16", 0) > 0
+        assert _knn_replies(Engine.load(path), queries) == before
+    finally:
+        config.set_config("search.corpus-dtype", saved)
+
+
+@pytest.mark.cuda
+def test_a_restore_publishes_to_the_card_at_its_first_query(dev, tmp_path):
+    from valkey_search_tpu_torch.server.engine import Engine
+
+    rng = np.random.default_rng(22)
+    rows = rng.standard_normal((3000, 32)).astype(np.float32)
+    saved = config.get("search.corpus-dtype")
+    try:
+        e = _flat_engine(rows, "int8")
+        before = _knn_replies(e, rows[:8])
+        path = str(tmp_path / "r.vstpu")
+        e.save(path)
+        back = Engine.load(path)
+        st = back.manager.get("i").attribute("v").index.store
+        assert st.device == dev and st._device is None
+        assert _knn_replies(back, rows[:8]) == before
+        assert st._device["vectors_i8"].device == dev
+        assert float(st._device["i8_scale"]) == float(
+            e.manager.get("i").attribute("v").index.store._device["i8_scale"])
+    finally:
+        config.set_config("search.corpus-dtype", saved)

@@ -155,16 +155,16 @@ def test_error_probes_raise_the_same_types(rng):
         assert _error_type(engines[1], *argv) == _error_type(engines[0], *argv)
 
 
-def test_unported_surface_raises_typed_errors():
-    teng = Engine()
-    # persistence is what stays unported: the commands and the methods
+def test_unported_surface_raises_typed_errors(tmp_path):
+    """Nothing of the Engine is left unported: SAVE and BGSAVE are RESP
+    server commands in both packages, so ``execute`` answers them with the
+    same error type and message as the JAX Engine, and ``save``/``load``
+    round-trip in the port."""
+    jeng, teng = JaxEngine(), Engine()
     for cmd in ("SAVE", "BGSAVE", "save", "bgsave"):
-        with pytest.raises(CommandError, match=r"not ported.*persistence/"):
-            teng.execute(cmd)
-    with pytest.raises(CommandError, match=r"not ported.*persistence/"):
-        teng.save("snapshot")
-    with pytest.raises(CommandError, match=r"not ported.*persistence/"):
-        Engine.load("snapshot")
+        want, got = (_error(e, cmd) for e in (jeng, teng))
+        assert want[0] == "CommandError" and "unknown command" in want[1]
+        assert got == want
     # the rest of the surface answers: keyspace, expiry, JSON, ACL, debug
     assert teng.execute("HSET", "k", "f", "1", "g", "2") == 2
     assert teng.execute("HDEL", "k", "f") == 1
@@ -174,16 +174,33 @@ def test_unported_surface_raises_typed_errors():
     assert teng.execute("FT._DEBUG", "STRING_POOL_STATS")[-1] == 2
     teng.acl.setuser("alice", "on", "~doc:*", "+@search")
     assert teng.execute("FT._LIST", user="alice") == []
-    with pytest.raises(CommandError, match="unknown command"):
-        teng.execute("MULTI")
-    # VECTOR HNSW, TAG, NUMERIC and TEXT are ported: the indexes are created
+    assert _error(teng, "MULTI") == _error(jeng, "MULTI")
     assert teng.execute("FT.CREATE", "h", "SCHEMA", "v", "VECTOR", "HNSW",
                         "6", "TYPE", "FLOAT32", "DIM", "4",
                         "DISTANCE_METRIC", "L2") == "OK"
     assert teng.execute("FT.CREATE", "t", "SCHEMA", "tag", "TAG", "n",
                         "NUMERIC", "title", "TEXT") == "OK"
-    assert teng.execute("FT.AGGREGATE", "t", "*", "GROUPBY", "1", "@tag",
-                        "REDUCE", "COUNT", "0", "AS", "n") == [0]
+    assert teng.execute("HSET", "d", "v", np.ones(4, np.float32).tobytes(),
+                        "tag", "x", "n", "3", "title", "red fox") == 4
+    path = str(tmp_path / "e.vstpu")
+    assert teng.save(path) == {"schemas": 2, "keys": 3}
+    back = Engine.load(path)
+    assert back.execute("FT._LIST") == ["h", "t"]
+    assert back.execute("FT.AGGREGATE", "t", "*", "GROUPBY", "1", "@tag",
+                        "REDUCE", "COUNT", "0", "AS", "n") == [
+        1, ["tag", "x", "n", "1"]]
+    assert back.execute("FT.SEARCH", "h", "*=>[KNN 1 @v $q]", "PARAMS", "2",
+                        "q", np.ones(4, np.float32).tobytes(),
+                        "NOCONTENT") == [1, "d"]
+    assert 0 < float(back.execute("TTL", "k")) <= 100
+
+
+def _error(engine, *argv):
+    try:
+        engine.execute(*argv)
+    except Exception as exc:  # noqa: BLE001 - the error is the outcome
+        return type(exc).__name__, str(exc)
+    return None
 
 
 _GUARD = r"""
@@ -257,6 +274,28 @@ assert a.cron()["expired"] == 0
 info = e.execute("INFO")
 assert info["search_number_of_indexes"] == 2, info
 assert info["search_aggregate_queries"] == 2, info
+import os, socket, tempfile
+from valkey_search_tpu_torch.server.resp import RespServer
+srv = RespServer(e, port=0).start()
+try:
+    sock = socket.create_connection(("127.0.0.1", srv.port), timeout=30)
+    argv = [b"FT.SEARCH", b"i", b"@t:{odd}=>[KNN 2 @v $q]", b"PARAMS", b"2",
+            b"q", q, b"NOCONTENT"]
+    sock.sendall(b"*%d\r\n" % len(argv) + b"".join(
+        b"$%d\r\n%s\r\n" % (len(a), a) for a in argv))
+    buf = b""
+    while buf.count(b"\r\n") < 5:
+        buf += sock.recv(4096)
+    assert buf == b"*3\r\n:2\r\n$2\r\nk3\r\n$2\r\nk1\r\n", buf
+    sock.close()
+finally:
+    srv.close()
+path = os.path.join(tempfile.mkdtemp(), "e.vstpu")
+e.save(path)
+back = Engine.load(path)
+reply = back.execute("FT.SEARCH", "i", "(@t:{even} @n:[0 3])=>[KNN 2 @v $q]",
+                     "PARAMS", "2", "q", q, "NOCONTENT")
+assert reply == [2, "k2", "k0"], reply
 assert not [m for m in sys.modules if m.split(".")[0] in _BLOCKED]
 print("no-jax-ok")
 """

@@ -107,8 +107,12 @@ def test_keyspace_commands_match_the_reference(both):
 
 
 def test_save_commands_are_what_stays_unported(both):
+    # SAVE and BGSAVE are RESP server commands in both packages (server/
+    # resp.py): Engine.execute answers them as the JAX Engine does
     for cmd in ("SAVE", "BGSAVE"):
-        with pytest.raises(CommandError, match="persistence/"):
+        got = both.same(cmd)
+        assert got.type == "CommandError" and "unknown command" in got.message
+        with pytest.raises(CommandError, match="unknown command"):
             both.port.execute(cmd)
 
 

@@ -11,9 +11,13 @@ copies of the JAX package's host modules behave as the originals do.
   ``PatriciaTree``, ``LRU``, ``attribute_data_type``, the metrics, the
   cancellation tokens and the query batcher against the reference's.
 - The modules copied whole (``expr``, ``log``, ``threadmon``, ``acl``,
-  ``ft_aggregate``, ``info``) are the reference's code with the package
-  name changed, statement for statement. ``ingestion`` carries one repair
-  and is held by behaviour (``tests/test_torch_ingestion.py``).
+  ``ft_aggregate``, ``info``, ``version``, ``persistence``'s ``format``,
+  ``journal`` and ``checkpoint``, ``lua``) are the reference's code with
+  the package name changed, statement for statement. ``ingestion`` carries
+  one repair and is held by behaviour (``tests/test_torch_ingestion.py``);
+  ``server/resp.py`` is the reference's statement for statement apart from
+  its forked BGSAVE and its command line (held by behaviour in
+  ``tests/test_torch_resp.py`` and ``tests/test_torch_persistence.py``).
 """
 
 import ast
@@ -92,12 +96,55 @@ def _code_without_docstring(path, package):
 @pytest.mark.parametrize("rel", [
     "query/expr.py", "runtime/log.py", "runtime/threadmon.py",
     "server/acl.py", "server/ft_aggregate.py", "runtime/info.py",
+    "version.py", "persistence/__init__.py", "persistence/format.py",
+    "persistence/journal.py", "persistence/checkpoint.py", "server/lua.py",
 ])
 def test_copied_module_is_the_reference_code(rel):
     assert (_code_without_docstring(f"valkey_search_tpu_torch/{rel}",
                                     "valkey_search_tpu_torch")
             == _code_without_docstring(f"valkey_search_tpu/{rel}",
                                        "valkey_search_tpu"))
+
+
+# the port's RESP server differs from the reference's in its forked BGSAVE
+# (a process that holds a CUDA context) and in its command line's --device
+_RESP_CHANGED = {"_engine_aux_locks", "_detach_after_fork", "bgsave_forked"}
+
+
+def _resp_statements(path, package):
+    """resp.py's statements, its docstring, the changed functions and the
+    ``__main__`` block dropped; each as an AST dump."""
+    tree = ast.parse(_renamed_source(path, package), path)
+    out = []
+    for node in tree.body[1:]:
+        if isinstance(node, ast.If):  # if __name__ == "__main__":
+            continue
+        if isinstance(node, ast.ClassDef):
+            for item in node.body:
+                if getattr(item, "name", None) not in _RESP_CHANGED:
+                    out.append(f"{node.name}: {ast.dump(item)}")
+        elif getattr(node, "name", None) not in _RESP_CHANGED:
+            out.append(ast.dump(node))
+    return out
+
+
+def _renamed_source(path, package):
+    src = open(os.path.join(REPO, path)).read()
+    if package == "valkey_search_tpu":
+        src = re.sub(r"valkey_search_tpu\b", "valkey_search_tpu_torch", src)
+    return src
+
+
+def test_resp_server_is_the_reference_code_but_its_fork_path():
+    port = _resp_statements("valkey_search_tpu_torch/server/resp.py",
+                            "valkey_search_tpu_torch")
+    ref = _resp_statements("valkey_search_tpu/server/resp.py",
+                           "valkey_search_tpu")
+    assert port == ref
+    names = {n.name for n in ast.walk(ast.parse(_renamed_source(
+        "valkey_search_tpu_torch/server/resp.py", "valkey_search_tpu_torch")))
+        if isinstance(n, (ast.FunctionDef, ast.ClassDef))}
+    assert _RESP_CHANGED <= names
 
 
 # -- config --------------------------------------------------------------------

@@ -72,6 +72,14 @@ class Both:
         self.port = PortEngine(**kwargs)
         self.engines = (self.jax, self.port)
 
+    @classmethod
+    def of(cls, jax_engine, port_engine) -> "Both":
+        """A pair over two engines that exist already (restored ones)."""
+        both = cls.__new__(cls)
+        both.jax, both.port = jax_engine, port_engine
+        both.engines = (jax_engine, port_engine)
+        return both
+
     def same(self, *argv, **kwargs):
         """Equal outcome on both; returns the port's reply, or its error as
         an ``Errored``."""

@@ -17,3 +17,7 @@ registry, metrics and query batcher are its own even when both packages run
 in one process. The native C++ sources under ``native/`` are
 repository-level and built by ``native/build.py`` for either package.
 """
+
+from valkey_search_tpu_torch.version import __version__  # noqa: F401
+
+__all__ = ["__version__"]

@@ -26,8 +26,10 @@ Two departures from the JAX package: the ingestion queue and the reader
 pool are created under the engine's lock, so clients that arrive together
 share one of each.
 
-Persistence is not ported: ``save``/``load`` and the SAVE and BGSAVE
-commands raise ``CommandError`` naming the JAX package's module.
+``save``/``load`` write and read the checkpoint format of
+``persistence/`` (the same file as the JAX package's). SAVE and BGSAVE are
+commands of the RESP server (``server/resp.py``), not of ``execute``, as in
+the JAX package.
 """
 
 from __future__ import annotations
@@ -45,13 +47,6 @@ from valkey_search_tpu_torch.server import ft_create as ft_create_mod
 from valkey_search_tpu_torch.server import ft_search as ft_search_mod
 
 Value = Union[str, bytes, int, float]
-
-
-# command -> the JAX package's module that serves it (not ported yet)
-_NOT_PORTED = {
-    "SAVE": "persistence/",
-    "BGSAVE": "persistence/",
-}
 
 
 class CommandError(ValueError):
@@ -589,15 +584,25 @@ class Engine:
 
     # --------------------------------------------------------- persistence
     def save(self, path: str):
-        """Checkpointing is not ported."""
-        raise CommandError(
-            "save is not ported yet (valkey_search_tpu/persistence/)")
+        """Checkpoint keyspace + schemas + vector graphs (reference RDB
+        save, SURVEY.md §3.5)."""
+        from valkey_search_tpu_torch.persistence import save_engine
+
+        if config.get("search.drain-mutation-queue-on-save"):
+            self.drain()
+        return save_engine(self, path)
 
     @classmethod
     def load(cls, path: str, skip_vector_payload=None) -> "Engine":
-        """Checkpointing is not ported."""
-        raise CommandError(
-            "load is not ported yet (valkey_search_tpu/persistence/)")
+        """Restore a checkpoint into a fresh engine. With
+        skip_vector_payload=True (or the search.skip-rdb-load config set)
+        the vector graphs are rebuilt from the keyspace (reference
+        skip-index-load config, valkey_search_options.cc:179)."""
+        from valkey_search_tpu_torch.persistence import load_engine
+
+        return load_engine(
+            path, engine=cls(), skip_vector_payload=skip_vector_payload
+        )
 
     # ------------------------------------------------------------------ acl
     @property
@@ -852,10 +857,6 @@ class Engine:
             raise CommandError("empty command")
         cmd = _s(argv[0]).upper()
         rest = list(argv[1:])
-        if cmd in _NOT_PORTED:
-            raise CommandError(
-                f"{cmd} is not ported yet (valkey_search_tpu/"
-                f"{_NOT_PORTED[cmd]})")
         table = {
             "FT.CREATE": lambda: self.ft_create(*rest, user=user),
             "FT.DROPINDEX": lambda: self.ft_dropindex(*rest, user=user),
