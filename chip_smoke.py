@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Build the PyTorch/CUDA port's kernels and drive its FT.SEARCH and
-FT.AGGREGATE paths, its RESP server and its persistence on one GPU.
+FT.AGGREGATE paths, its RESP server, its persistence and its cluster layer
+on one GPU.
 
 Run from the root of a checkout, on a machine with an NVIDIA H100:
 
@@ -33,7 +34,7 @@ Phases (each failure exits non-zero; there is no CPU path):
               seeded tags and prices) + FT.SEARCH KNN 10 from 16 threads,
               under int8 (K1, pre_shift > 0) and bfloat16 (K2): unfiltered,
               then hybrid under a tag (~1%), two price ranges (~10%, ~50%)
-              and their conjunction (~0.5%); and a 200,000-row int8 index
+              and their conjunction (~0.5%); and a 140,000-row int8 index
               with a TEXT field (K1, pre_shift = 0), unfiltered and under a
               text filter. recall@10 against fp64 ground truth restricted to
               the qualified rows, no key outside a filter, the kernels'
@@ -54,7 +55,7 @@ Phases (each failure exits non-zero; there is no CPU path):
    FILTER stages (no row outside the filter); the columnar
    GROUPBY over ~100,000 rows against np.unique (no scan launch), then the
    same request by the per-row route while HSETs land, and each route
-   timed; asynchronous ingestion of 30,000 rows (Engine(sync_ingest=False),
+   timed; asynchronous ingestion of 20,000 rows (Engine(sync_ingest=False),
    4 writers, drain(); FT.CREATE after the data and cron() until the
    backfill ends) against a synchronous engine, KNN 10 keys equal, HSETs
    per second of each; PEXPIRE on 100 returned keys (none returns from KNN
@@ -127,6 +128,34 @@ Phases (each failure exits non-zero; there is no CPU path):
               build_ivf against build_ivf_device over the first 1,000,000
               rows (recall on 16,384 queries within 0.01 at the same
               probe).
+7. cluster  - (a) ClusterEngine(n_nodes=3) over rows 0-599,999 of the slice's
+              corpus with their tags (~200,000 a shard: capacity 200,704,
+              K1 at pre_shift 0 under int8, K2 under bfloat16), every row
+              through ClusterEngine.execute("HSET"); 256 KNN 10 unfiltered
+              and behind @cat:{c7} under each dtype from 16 threads: recall
+              >= 0.99 against fp64 ground truth over the 600,000 rows, no
+              key outside the filter, the merged top 10 equal to the 10
+              smallest of the shards' own execute_search replies, the
+              dtype's kernel launched on every shard (3 launches for one
+              request alone; 3 a filtered request); FT.INFO CLUSTER
+              num_docs; FT.AGGREGATE over KNN 100 GROUPBY @cat against
+              numpy over the shards' rows. (b) three NodeServers in this
+              process (ephemeral ports, gossip every 0.05 s): FT.CREATE over
+              the wire, _META.FP equal on all three; 130,000 rows a node
+              through each node's Engine (capacity 131,072); KNN 10 over 16
+              RESP connections spread over the nodes (1,024 under int8,
+              256 under bfloat16) against ClusterClient.ft_search (equal
+              replies, near-ties at the 10th rank allowed under int8),
+              recall, 3 launches for one request alone; MOVED for a key of
+              another node's range; node 2 closed: an error, then with
+              search.enable-partial-results the two live shards' merge. (c)
+              a node process (python -m
+              valkey_search_tpu_torch.cluster.transport, cuda:0 by
+              default) as primary with 5,000 rows over the wire and a
+              replica in this process: after the full sync and its first
+              gossip round FT.SEARCH through the replica counts 5,000 (not
+              10,000); the primary SIGKILLed and the replica promoted, it
+              counts 5,000, then 5,001 after an HSET; the process is gone.
 
 The next-to-last line is the card's name and power limit as nvidia-smi gives
 them; the line before it the kernels' JSON record; the last line the result.
@@ -148,10 +177,10 @@ import numpy as np
 
 D = 128
 N_BIG = 1_000_000
-N_SMALL = 200_000
+N_SMALL = 140_000  # capacity 141,312: the fused scan, span 1 (K1a)
 N_CENTERS = 1024
 N_CATS = 100
-N_WORDS = 40  # the 200k index's title vocabulary
+N_WORDS = 40  # the small index's title vocabulary
 N_QUERIES = 1024
 N_GT = 256
 K = 10
@@ -232,7 +261,7 @@ AGG_QUERIES = 256
 AGG_CASES = (("int8", 0, "bucket_scan_i8_packed[pre_shift>0]", 0.94),
              ("int8", 1, "bucket_scan_i8_packed[pre_shift=0]", RECALL_FLOOR),
              ("bfloat16", 0, "bucket_scan_bf16", RECALL_FLOOR))
-N_ASYNC = 30_000
+N_ASYNC = 20_000
 ASYNC_WRITERS = 4
 N_EXPIRE = 100
 EXPIRE_MS = 200
@@ -284,6 +313,18 @@ INFO_MOVED = ("search_queries_total", "search_vector_queries",
 # another coarse survivor at its last ranks)
 N_JOURNAL = 5_000
 INT8_EQUAL = 0.9
+# the cluster phase: three primaries (the smallest cluster of the Valkey
+# cluster tutorial) over the first N_CLUSTER rows of the slice's corpus,
+# ~200,000 a shard; a socket trio with N_TRIO rows a node; a failover pair
+# of N_FAILOVER rows. A FLAT store grows in 2,048-row steps and the fused
+# scan serves from capacity 131,072, so a shard needs 129,025 rows or more
+# for K1 (span 1 below 524,288: pre_shift 0) and K2 to serve it
+N_CLUSTER = 600_000
+N_CLUSTER_SHARDS = 3
+CLUSTER_QUERIES = 256
+N_TRIO = 130_000
+N_FAILOVER = 5_000
+AGG_CLUSTER_K = 100
 IVF_COUNTERS = ("ivf_mirror_builds", "ivf_served_searches",
                 "ivf_stage2_grouped", "ivf_stage2_steps")
 
@@ -349,7 +390,7 @@ def seeded_fields(n: int, seed: int = 7):
 
 
 def seeded_titles(n: int, seed: int = 11) -> np.ndarray:
-    """The 200k index's titles: 4 words each of a fixed vocabulary (w00 ..
+    """The small index's titles: 4 words each of a fixed vocabulary (w00 ..
     w39, too short to stem), as word ids [n, 4]."""
     return np.random.default_rng(seed).integers(0, N_WORDS, (n, 4))
 
@@ -752,10 +793,11 @@ def batch_qps(torch, index, queries: np.ndarray, b: int, **search) -> float:
 def profile_hybrid(torch, engine, queries: np.ndarray, gpu: str,
                    stats: dict, flt: str = "@cat:{c7}") -> None:
     """Where a hybrid request's time goes, under each dtype: one request at
-    a time on the host clock; 16 threads at the default GIL switch interval
-    and at 0.1 ms (a convoy on the GIL shows as throughput that rises when
-    the interval falls); and torch.profiler over 10 requests (device time
-    and device operations per request, the costliest kernels)."""
+    a time on the host clock; 128 requests from 16 threads at the default
+    GIL switch interval and at 0.1 ms (a convoy on the GIL shows as
+    throughput that rises when the interval falls); and torch.profiler over
+    10 requests (device time and device operations per request, the
+    costliest kernels)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -778,11 +820,11 @@ def profile_hybrid(torch, engine, queries: np.ndarray, gpu: str,
             sys.setswitchinterval(interval)
             try:
                 t0 = time.perf_counter()
-                _, lat16 = search_all(engine, "idx", queries, flt)
+                _, lat16 = search_all(engine, "idx", queries[:128], flt)
                 wall = time.perf_counter() - t0
             finally:
                 sys.setswitchinterval(default)
-            rec[f"threads16_rps@{interval}"] = len(queries) / wall
+            rec[f"threads16_rps@{interval}"] = 128 / wall
             rec[f"threads16_p50_ms@{interval}"] = (
                 float(np.percentile(lat16, 50)) * 1e3)
         reps = 10
@@ -1365,6 +1407,21 @@ class Resp:
             raise reply
         return reply
 
+    def pipeline(self, argvs) -> list:
+        """Send every argv, then read every reply; an error reply raises."""
+        for argv in argvs:
+            out = [b"*%d\r\n" % len(argv)]
+            for a in argv:
+                a = a.encode() if isinstance(a, str) else bytes(a)
+                out.append(b"$%d\r\n%s\r\n" % (len(a), a))
+            self.f.write(b"".join(out))
+        self.f.flush()
+        replies = [self.read() for _ in argvs]
+        errors = [r for r in replies if isinstance(r, ReplyError)]
+        if errors:
+            raise errors[0]
+        return replies
+
     def read(self):
         line = self.f.readline()
         if not line:
@@ -1908,13 +1965,16 @@ def server_phase(torch, bs, gpu, engine, corpus, queries, cats,
     return out
 
 
-def slice_phase(torch, bs, dev, gpu: str) -> dict:
+def slice_phase(torch, bs, dev, gpu: str, keep: dict) -> dict:
+    """Phase 4 and the phases inside it; ``keep`` receives the corpus, the
+    queries and the tags, which the cluster phase reuses."""
     from valkey_search_tpu_torch.server.engine import Engine
 
     stats = {"launches": {}}
     t0 = time.perf_counter()
     corpus, queries = sift_like(N_BIG, N_QUERIES + 16384)
     cats, prices = seeded_fields(N_BIG)
+    keep.update(corpus=corpus, queries=queries, cats=cats)
     small = corpus[:N_SMALL]
     titles = seeded_titles(N_SMALL)
     log(f"data: {N_BIG} x {D} corpus + {len(queries)} queries in "
@@ -2730,6 +2790,456 @@ def ivf_phase(torch, bs, dev, gpu: str, stats: dict) -> None:
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the cluster, in one process and over sockets, and a failover
+# across a process boundary
+# ---------------------------------------------------------------------------
+
+
+def shard_merge(nodes, argv, k: int):
+    """The k smallest of the shards' own replies to one FT.SEARCH (each
+    node's execute_search on its own engine), merged as the cluster's
+    coordinator merges them: in node order, a stable sort by distance."""
+    from valkey_search_tpu_torch.query.search import execute_search
+    from valkey_search_tpu_torch.server import ft_search as ft_search_mod
+
+    sp = ft_search_mod.parse_ft_search_args(list(argv))
+    rows = []
+    for node in nodes:
+        resp = execute_search(node.engine.manager.get(sp.index_name), sp)
+        rows += [(nb.key, nb.distance) for nb in resp.neighbors]
+    rows.sort(key=lambda r: r[1])
+    return rows[:k]
+
+
+def cluster_engine_part(torch, bs, dev, gpu, rows, queries, cats,
+                        launches: dict) -> dict:
+    """(a) ClusterEngine(n_nodes=3) on the card: HSET every row through
+    ClusterEngine.execute, then KNN 10 unfiltered and behind @cat:{c7}
+    under int8 and bfloat16 from THREADS threads; recall, no key outside
+    the filter, the merge against the shards' own replies, a launch of the
+    dtype's kernel on every shard for every query; FT.INFO CLUSTER; one
+    FT.AGGREGATE over KNN 100 grouped by @cat against numpy."""
+    from valkey_search_tpu_torch.cluster.node import ClusterEngine
+
+    out = {}
+    n = len(rows)
+    ce = ClusterEngine(n_nodes=N_CLUSTER_SHARDS)
+    check(ce.execute(
+        "FT.CREATE", "idx", "ON", "HASH", "PREFIX", "1", "doc:", "SCHEMA",
+        "v", "VECTOR", "FLAT", "6", "TYPE", "FLOAT32", "DIM", str(D),
+        "DISTANCE_METRIC", "L2", "cat", "TAG", "price", "NUMERIC") == "OK",
+        "cluster FT.CREATE")
+    t0 = time.perf_counter()
+    for i in range(n):
+        ce.execute("HSET", f"doc:{i}", "v", rows[i].tobytes(),
+                   "cat", f"c{cats[i]}", "price", str(i % 1000))
+    out["ingest_s"] = time.perf_counter() - t0
+    shards = [len(node.engine.keyspace) for node in ce.nodes]
+    caps = [node.engine.manager.get("idx").attribute("v").index.store
+            .capacity for node in ce.nodes]
+    info = ce.execute("FT.INFO", "idx", "CLUSTER")
+    num_docs = info[info.index("num_docs") + 1]
+    log(f"cluster: {n} HSETs through ClusterEngine.execute over "
+        f"{N_CLUSTER_SHARDS} shards in {out['ingest_s']:.1f} s "
+        f"({out['ingest_s'] / n * 1e6:.1f} us/row); rows a shard {shards}, "
+        f"capacity {caps}; FT.INFO CLUSTER num_docs {num_docs}", gpu)
+    check(num_docs == n, f"cluster FT.INFO num_docs {num_docs} != {n}")
+    # the fused scan serves from capacity 131,072; under 524,288 int8 scans
+    # at span 1 (K1 at pre_shift 0)
+    check(all(131_072 <= c < 524_288 for c in caps),
+          f"shard capacities {caps}")
+    out["rows_a_shard"] = shards
+
+    qs = queries[:CLUSTER_QUERIES]
+    c64 = torch.as_tensor(rows, dtype=torch.float64, device=dev)
+    csq = (c64 * c64).sum(1)
+    in_c7 = cats[:n] == 7
+    gts = {"*": fp64_gt(torch, c64, csq, qs, K, dev),
+           "@cat:{c7}": fp64_gt(torch, c64, csq, qs, K, dev, in_c7)}
+    del c64, csq
+    torch.cuda.empty_cache()
+    kernels = (("int8", "bucket_scan_i8_packed[pre_shift=0]"),
+               ("bfloat16", "bucket_scan_bf16"))
+    for dtype, kernel in kernels:
+        ce.nodes[0].engine.config_set("search.corpus-dtype", dtype)
+        ce.execute(*_knn_argv("idx", "*", qs[0]))  # publish (not timed)
+        for flt, gt in gts.items():
+            argvs = [_knn_argv("idx", flt, q) for q in qs]
+            (replies, lat, wall), counts = counted(
+                bs, launches, lambda: execute_all(ce, argvs))
+            got = [_keys_dists(r) for r in replies]
+            ids = key_ids([keys for keys, _ in got], "doc:")
+            r = recall(ids, gt)
+            outside = int((~in_c7[ids[ids >= 0]]).sum()) if flt != "*" else 0
+            merged = sum(
+                1 for (keys, _), argv in zip(got, argvs)
+                if keys == [key for key, _ in shard_merge(ce.nodes, argv[1:],
+                                                          K)])
+            rec = {"requests_per_s": len(qs) / wall,
+                   "p50_ms": float(np.percentile(lat, 50) * 1e3),
+                   "p99_ms": float(np.percentile(lat, 99) * 1e3),
+                   "recall": r, "launches": counts, "merge_equal": merged}
+            log(f"cluster {dtype} {knn(flt)!r}: {len(qs)} requests from "
+                f"{THREADS} threads, {rec['requests_per_s']:.1f} requests/s, "
+                f"p50 {rec['p50_ms']:.3f} ms, p99 {rec['p99_ms']:.3f} ms; "
+                f"recall@{K} {r:.4f}; {outside} keys outside the filter; "
+                f"merge equal to the shards' own replies on {merged} of "
+                f"{len(qs)}; launches {counts} "
+                f"({sum(counts.values()) / len(qs):.2f} a request)",
+                gpu)
+            check(r >= RECALL_FLOOR, f"cluster/{dtype}/{flt}: recall {r}")
+            check(outside == 0, f"cluster/{dtype}/{flt}: {outside} outside")
+            check(merged == len(qs), f"cluster/{dtype}/{flt}: the merge "
+                  f"differs from the shards' own replies on "
+                  f"{len(qs) - merged} requests")
+            # an unfiltered shard search goes through its index's batcher,
+            # which coalesces concurrent requests into one launch; one
+            # request alone launches the kernel once on every shard
+            (_, probe) = counted(bs, launches,
+                                 lambda: ce.execute(*argvs[0]))
+            rec["launches_alone"] = probe
+            check(counts.get(kernel, 0) > 0 and probe.get(kernel, 0)
+                  == N_CLUSTER_SHARDS and sum(probe.values())
+                  == N_CLUSTER_SHARDS,
+                  f"cluster/{dtype}/{flt}: {kernel} launched "
+                  f"{counts.get(kernel, 0)} times for {len(qs)} requests "
+                  f"over {N_CLUSTER_SHARDS} shards, {probe} for one")
+            if flt != "*":  # one search_batch a shard a filtered request
+                check(counts.get(kernel, 0) == N_CLUSTER_SHARDS * len(qs),
+                      f"cluster/{dtype}/{flt}: launched {counts} for "
+                      f"{len(qs)} requests")
+            out[f"{dtype}/{flt}"] = rec
+
+    # FT.AGGREGATE over KNN 100 fans out; the coordinator groups every
+    # shard's top 100 (as the JAX package does), so numpy counts @cat over
+    # the shards' own replies
+    q = qs[1]
+    agg_argv = ("FT.AGGREGATE", "idx", f"*=>[KNN {AGG_CLUSTER_K} @v $q]",
+                "PARAMS", "2", "q", q.tobytes(), "LOAD", "1", "@cat",
+                "GROUPBY", "1", "@cat", "REDUCE", "COUNT", "0", "AS", "n")
+    (reply, counts) = counted(bs, launches, lambda: ce.execute(*agg_argv))
+    got = {_text(row["cat"]): int(_text(row["n"])) for row in rows_of(reply)}
+    keys = [key for key, _ in shard_merge(
+        ce.nodes, ("idx", f"*=>[KNN {AGG_CLUSTER_K} @v $q]", "PARAMS", "2",
+                   "q", q.tobytes(), "LIMIT", "0", str(10 ** 9)), 10 ** 9)]
+    values, freq = np.unique([cats[int(k[4:])] for k in keys],
+                             return_counts=True)
+    want = {f"c{v}": int(f) for v, f in zip(values, freq)}
+    log(f"cluster FT.AGGREGATE KNN {AGG_CLUSTER_K} GROUPBY @cat: "
+        f"{len(got)} groups over {sum(got.values())} rows, numpy "
+        f"{len(want)} groups over {len(keys)} rows; launches {counts}", gpu)
+    check(got == want, f"cluster FT.AGGREGATE counts {got} != numpy {want}")
+    out["aggregate_rows"] = sum(got.values())
+    return out
+
+
+def start_trio(gpu):
+    """Three NodeServers in this process on ephemeral ports, mutual gossip
+    every 0.05 s, assign_slot_ranges(3), as tests/test_transport.py's trio;
+    FT.CREATE over the wire to node 0, then until gossip has converged
+    (_META.FP equal on all three, each knowing both peers' slot ranges).
+    Returns (the nodes, the seconds to converge)."""
+    from valkey_search_tpu_torch.cluster.transport import (
+        NodeServer,
+        assign_slot_ranges,
+    )
+
+    nodes = [NodeServer(f"n{i}", port=0, gossip_interval_s=0.05)
+             for i in range(N_CLUSTER_SHARDS)]
+    for (lo, hi), node in zip(assign_slot_ranges(N_CLUSTER_SHARDS), nodes):
+        node.slots = (lo, hi)
+    for node in nodes:
+        node.resp.start()
+    addrs = [f"127.0.0.1:{node.port}" for node in nodes]
+    for i, node in enumerate(nodes):
+        node.peers = [a for j, a in enumerate(addrs) if j != i]
+        node._ensure_gossip_thread()
+    conns = [Resp(node.port) for node in nodes]
+    try:
+        check(conns[0].cmd(
+            "FT.CREATE", "idx", "ON", "HASH", "PREFIX", "1", "doc:",
+            "SCHEMA", "v", "VECTOR", "FLAT", "6", "TYPE", "FLOAT32", "DIM",
+            str(D), "DISTANCE_METRIC", "L2", "cat", "TAG") == "OK",
+            "trio FT.CREATE over the wire")
+        t0 = time.perf_counter()
+        while True:
+            fps = {c.cmd("_META.FP") for c in conns}
+            if len(fps) == 1 and all(len(node._peer_slots) == 2
+                                     for node in nodes):
+                break
+            check(time.perf_counter() - t0 < 30,
+                  f"trio gossip did not converge: _META.FP {fps}")
+            time.sleep(0.01)
+        return nodes, time.perf_counter() - t0
+    finally:
+        for c in conns:
+            c.close()
+
+
+def socket_part(torch, bs, dev, gpu, corpus, queries, cats,
+                launches: dict) -> dict:
+    """(b) A socket trio on the card: N_TRIO rows a node through each node's
+    own Engine (keys drawn by key_slot into its range), then KNN 10 over
+    THREADS RESP connections spread over the three nodes (each node's
+    coordinator fans out _PART.SEARCH over TCP), N_QUERIES under int8 and
+    N_GT under bfloat16, against ClusterClient.ft_search; recall; MOVED;
+    node 2 closed without and with partial results."""
+    from valkey_search_tpu_torch.cluster.node import key_slot
+    from valkey_search_tpu_torch.cluster.transport import ClusterClient
+    from valkey_search_tpu_torch.runtime import config
+
+    out = {}
+    nodes, out["gossip_converge_s"] = start_trio(gpu)
+    conns, clients = [], []
+    try:
+        owned = [[] for _ in nodes]
+        for i in range(len(corpus)):
+            slot = key_slot(f"doc:{i}")
+            for ids, node in zip(owned, nodes):
+                if node.slots[0] <= slot < node.slots[1]:
+                    if len(ids) < N_TRIO:
+                        ids.append(i)
+                    break
+            if all(len(ids) == N_TRIO for ids in owned):
+                break
+        t0 = time.perf_counter()
+        for node, ids in zip(nodes, owned):
+            for i in ids:
+                node.engine.execute("HSET", f"doc:{i}", "v",
+                                    corpus[i].tobytes(), "cat", f"c{cats[i]}")
+        out["ingest_s"] = time.perf_counter() - t0
+        caps = [node.engine.manager.get("idx").attribute("v").index.store
+                .capacity for node in nodes]
+        log(f"trio: gossip converged in {out['gossip_converge_s']:.3f} s; "
+            f"{N_TRIO} rows a node through each node's Engine in "
+            f"{out['ingest_s']:.1f} s; capacity {caps}", gpu)
+        check(all(131_072 <= c < 524_288 for c in caps),
+              f"trio capacities {caps}")
+        rows = np.concatenate([np.asarray(ids) for ids in owned])
+        qs = queries[:N_QUERIES]
+        c64 = torch.as_tensor(corpus[rows], dtype=torch.float64, device=dev)
+        gt = rows[fp64_gt(torch, c64, (c64 * c64).sum(1), qs[:N_GT], K, dev)]
+        gt = [[f"doc:{i}" for i in row] for row in gt]
+        del c64
+        torch.cuda.empty_cache()
+
+        addrs = [f"127.0.0.1:{node.port}" for node in nodes]
+        conns = [Resp(nodes[t % len(nodes)].port) for t in range(THREADS)]
+        clients = [ClusterClient(addrs) for _ in range(THREADS)]
+        # all N_QUERIES under int8; the first N_GT under bfloat16 (the
+        # in-process part runs both dtypes in full; this keeps the phase's
+        # time)
+        for dtype, kernel, n_req in (
+                ("int8", "bucket_scan_i8_packed[pre_shift=0]", N_QUERIES),
+                ("bfloat16", "bucket_scan_bf16", N_GT)):
+            argvs = [_knn_argv("idx", "*", q) for q in qs[:n_req]]
+            config.set_config("search.corpus-dtype", dtype)
+            for c in conns[:len(nodes)]:
+                c.cmd(*argvs[0])  # publish every shard (not timed)
+            (replies, lat, wall), counts = counted(
+                bs, launches, lambda: execute_all(
+                    None, argvs, [c.cmd for c in conns]))
+            wire = [_keys_dists(r) for r in replies]
+            (direct, _, cwall), _ = counted(
+                bs, launches, lambda: execute_all(
+                    None, argvs, [c.execute for c in clients]))
+            same = same_replies(wire, [_keys_dists(r) for r in direct],
+                                qs[:n_req], f"trio/{dtype}",
+                                INT8_EQUAL if dtype == "int8" else 1.0)
+            r = recall([keys for keys, _ in wire[:N_GT]], gt)
+            n_launch = counts.get(kernel, 0)
+            rec = {"requests": n_req, "requests_per_s": n_req / wall,
+                   "p50_ms": float(np.percentile(lat, 50) * 1e3),
+                   "p99_ms": float(np.percentile(lat, 99) * 1e3),
+                   "client_requests_per_s": n_req / cwall,
+                   "recall": r, "same": same,
+                   "launches_a_request": n_launch / n_req}
+            log(f"trio {dtype}: {n_req} KNN 10 over {len(conns)} RESP "
+                f"connections to 3 nodes {rec['requests_per_s']:.1f} "
+                f"requests/s, p50 {rec['p50_ms']:.3f} ms, p99 "
+                f"{rec['p99_ms']:.3f} ms (ClusterClient.ft_search from "
+                f"{len(clients)} threads: "
+                f"{rec['client_requests_per_s']:.1f} requests/s); replies "
+                f"equal to ClusterClient's {same}; recall@{K} {r:.4f}; "
+                f"{rec['launches_a_request']:.2f} {kernel} launches a "
+                f"request {counts}", gpu)
+            # one request alone: one _PART.SEARCH, one launch, a shard
+            (_, probe) = counted(bs, launches,
+                                 lambda: conns[0].cmd(*argvs[0]))
+            rec["launches_alone"] = probe
+            log(f"trio {dtype}: one request alone launches {probe}", gpu)
+            check(r >= RECALL_FLOOR, f"trio/{dtype}: recall {r}")
+            check(n_launch > 0 and probe.get(kernel, 0) == N_CLUSTER_SHARDS
+                  and sum(probe.values()) == N_CLUSTER_SHARDS,
+                  f"trio/{dtype}: {kernel} launched {n_launch} times for "
+                  f"{n_req} requests over {N_CLUSTER_SHARDS} shards, "
+                  f"{probe} for one")
+            out[dtype] = rec
+
+        # MOVED: a key of node 1's range sent to node 0
+        key = next(f"mv{i}" for i in range(100_000)
+                   if nodes[1].slots[0] <= key_slot(f"mv{i}")
+                   < nodes[1].slots[1])
+        try:
+            conns[0].cmd("HSET", key, "cat", "x")
+            moved = None
+        except ReplyError as exc:
+            moved = str(exc)
+        want = f"MOVED {key_slot(key)} 127.0.0.1:{nodes[1].port}"
+        log(f"trio: HSET {key} to node 0: {moved!r}", gpu)
+        check(moved == want, f"MOVED: {moved!r} != {want!r}")
+
+        # node 2 closed: an error without partial results; with them, the
+        # two live shards' merge. A closed RespServer's handler thread that
+        # already waits on an open connection answers the one request it
+        # reads next (in both packages), so node 0's coordinator has one
+        # more answer from node 2 before its connection is gone
+        nodes[2].close()
+        argv = argvs[1]
+        conns[0].cmd(*argv)
+        try:
+            conns[0].cmd(*argv)
+            refused = None
+        except (ReplyError, OSError, EOFError) as exc:
+            refused = repr(exc)
+        config.set_config("search.enable-partial-results", True)
+        try:
+            partial = _keys_dists(conns[0].cmd(*argv))[0]
+        finally:
+            config.set_config("search.enable-partial-results", False)
+        live = [key for key, _ in shard_merge(nodes[:2], argv[1:], K)]
+        log(f"trio: node 2 closed: without partial results {refused}; with "
+            f"them {len(partial)} keys, equal to the live shards' merge "
+            f"{partial == live}", gpu)
+        check(refused is not None, "node 2 closed: the search did not fail")
+        check(partial == live, f"partial results {partial} != {live}")
+    finally:
+        for c in conns:
+            c.close()
+        for c in clients:
+            c.close()
+        for node in nodes:
+            node.close()
+    return out
+
+
+def failover_part(gpu, corpus, cats) -> dict:
+    """(c) Failover across a process boundary. The primary is a node
+    process (python -m valkey_search_tpu_torch.cluster.transport, on
+    cuda:0 by default: a second CUDA context on the card) holding
+    N_FAILOVER rows written over the wire; the replica a NodeServer in this
+    process (the JAX package offers no command that promotes a node over
+    the wire, so the node to promote runs here). After the full sync and
+    the replica's first gossip round, FT.SEARCH through the replica counts
+    each row once; the primary is killed (SIGKILL), the replica promoted,
+    and it counts N_FAILOVER, then N_FAILOVER + 1 after an HSET."""
+    import signal
+
+    from valkey_search_tpu_torch.cluster.transport import NodeServer
+
+    out = {}
+    t0 = time.perf_counter()
+    errlog = tempfile.TemporaryFile(mode="w+")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "valkey_search_tpu_torch.cluster.transport",
+         "--node-id", "p0", "--port", "0"],
+        stdout=subprocess.PIPE, stderr=errlog, text=True,
+        env=dict(os.environ, PYTHONPATH=os.path.dirname(
+            os.path.abspath(__file__))))
+    replica, pc, rc = None, None, None
+    count = ("FT.SEARCH", "fo", "*", "NOCONTENT", "LIMIT", "0", "0")
+    try:
+        line = proc.stdout.readline().strip()
+        if not line.startswith("READY "):
+            proc.wait(30)
+            errlog.seek(0)
+            check(False, f"node process: {line!r} {errlog.read()[-2000:]}")
+        out["process_start_s"] = time.perf_counter() - t0
+        port = int(line.split()[1])
+        pc = Resp(port)
+        check(pc.cmd("FT.CREATE", "fo", "ON", "HASH", "PREFIX", "1", "doc:",
+                     "SCHEMA", "v", "VECTOR", "FLAT", "6", "TYPE", "FLOAT32",
+                     "DIM", str(D), "DISTANCE_METRIC", "L2", "cat", "TAG")
+              == "OK", "failover FT.CREATE")
+        t0 = time.perf_counter()
+        pc.pipeline([("HSET", f"doc:{i}", "v", corpus[i].tobytes(), "cat",
+                      f"c{cats[i]}") for i in range(N_FAILOVER)])
+        out["primary_ingest_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        replica = NodeServer("r0", port=0, gossip_interval_s=0.05).start()
+        addr = f"127.0.0.1:{port}"
+        replica.become_replica_of(addr)
+        while (len(replica.engine.keyspace) < N_FAILOVER
+               or "fo" not in replica.engine.ft_list()
+               or addr not in replica._peer_slots):
+            check(time.perf_counter() - t0 < 120, "the full sync and the "
+                  "first gossip round did not land")
+            time.sleep(0.01)
+        out["sync_s"] = time.perf_counter() - t0
+        rc = Resp(replica.port)
+        out["through_replica"] = rc.cmd(*count)[0]
+        knn_before = _keys_dists(rc.cmd(*_knn_argv("fo", "*", corpus[3])))[0]
+        proc.send_signal(signal.SIGKILL)
+        proc.wait(30)
+        replica.promote_to_primary()
+        out["after_promotion"] = rc.cmd(*count)[0]
+        rc.cmd("HSET", "doc:new", "v", corpus[N_FAILOVER].tobytes(),
+               "cat", "c0")
+        out["after_hset"] = rc.cmd(*count)[0]
+        knn_after = _keys_dists(rc.cmd(*_knn_argv("fo", "*", corpus[3])))[0]
+        log(f"failover: node process up in {out['process_start_s']:.1f} s, "
+            f"{N_FAILOVER} HSETs over the wire in "
+            f"{out['primary_ingest_s']:.2f} s, full sync + first gossip "
+            f"round {out['sync_s']:.2f} s; FT.SEARCH through the replica "
+            f"counts {out['through_replica']}; primary killed, replica "
+            f"promoted: {out['after_promotion']}, after an HSET "
+            f"{out['after_hset']}; KNN through it {knn_before[:3]} -> "
+            f"{knn_after[:3]}", gpu)
+        check(out["through_replica"] == N_FAILOVER,
+              f"the replica counts {out['through_replica']}, not "
+              f"{N_FAILOVER}")
+        check((out["after_promotion"], out["after_hset"])
+              == (N_FAILOVER, N_FAILOVER + 1),
+              f"after promotion {out['after_promotion']}, "
+              f"{out['after_hset']}")
+        check(knn_before[0] == knn_after[0] == "doc:3", "failover KNN")
+    finally:
+        for c in (pc, rc):
+            if c is not None:
+                try:
+                    c.close()
+                except OSError:
+                    pass
+        if replica is not None:
+            replica.close()
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait(30)
+        errlog.close()
+    check(proc.poll() is not None, "the node process was left behind")
+    return out
+
+
+def cluster_phase(torch, bs, dev, gpu, corpus, queries, cats) -> dict:
+    stats = {"launches": {}}
+    t0 = time.perf_counter()
+    stats["engine"] = cluster_engine_part(
+        torch, bs, dev, gpu, corpus[:N_CLUSTER], queries, cats,
+        stats["launches"])
+    log(f"cluster (a) in-process {time.perf_counter() - t0:.1f} s", gpu)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    stats["socket"] = socket_part(torch, bs, dev, gpu, corpus, queries, cats,
+                                  stats["launches"])
+    log(f"cluster (b) sockets {time.perf_counter() - t0:.1f} s", gpu)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    stats["failover"] = failover_part(gpu, corpus, cats)
+    log(f"cluster (c) failover {time.perf_counter() - t0:.1f} s", gpu)
+    return stats
+
+
 def main() -> int:
     import torch
 
@@ -2771,7 +3281,8 @@ def main() -> int:
     log(f"kernel phase {time.perf_counter() - t0:.1f} s", gpu)
 
     t0 = time.perf_counter()
-    stats = slice_phase(torch, bs, dev, gpu)
+    data = {}
+    stats = slice_phase(torch, bs, dev, gpu, data)
     log(f"slice phase {time.perf_counter() - t0:.1f} s", gpu)
     log("slice stats " + json.dumps(stats), gpu)
     torch.cuda.empty_cache()
@@ -2789,6 +3300,15 @@ def main() -> int:
     log(f"ivf phase {ivf['wall_s']:.1f} s", gpu)
     log("ivf stats " + json.dumps(ivf), gpu)
     _merge_launches(stats["launches"], ivf["launches"])
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    cluster = cluster_phase(torch, bs, dev, gpu, data["corpus"],
+                            data["queries"], data["cats"])
+    cluster["wall_s"] = time.perf_counter() - t0
+    log(f"cluster phase {cluster['wall_s']:.1f} s", gpu)
+    log("cluster stats " + json.dumps(cluster), gpu)
+    _merge_launches(stats["launches"], cluster["launches"])
 
     replaces = {
         "bucket_scan_i8_packed[pre_shift=0]":

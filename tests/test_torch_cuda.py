@@ -514,3 +514,96 @@ def test_a_restore_publishes_to_the_card_at_its_first_query(dev, tmp_path):
             e.manager.get("i").attribute("v").index.store._device["i8_scale"])
     finally:
         config.set_config("search.corpus-dtype", saved)
+
+
+def _cluster_knn(cluster, queries):
+    return [cluster.execute("FT.SEARCH", "i", "*=>[KNN 10 @v $q]", "PARAMS",
+                            "2", "q", q.tobytes(), "RETURN", "1",
+                            "__v_score") for q in queries]
+
+
+@pytest.mark.cuda
+def test_cluster_engine_fans_knn_out_over_k2_on_every_shard(dev):
+    """ClusterEngine(n_nodes=3) on the card over 3 x ~132,000 rows (a FLAT
+    store grows in 2,048-row steps; from 129,025 rows its capacity reaches
+    131,072, where the fused scan serves): bfloat16 KNN replies equal the
+    CPU port's (keys in order, or distances within rounding where keys
+    tie), and K2 launches once a shard a query."""
+    from valkey_search_tpu_torch.cluster.node import ClusterEngine
+
+    rng = np.random.default_rng(31)
+    rows = rng.standard_normal((396_000, 64)).astype(np.float32)
+    queries = rows[rng.integers(0, len(rows), 16)] + 0.01
+    saved = config.get("search.corpus-dtype")
+    replies = []
+    try:
+        config.set_config("search.corpus-dtype", "bfloat16")
+        for device in ("cuda", "cpu"):
+            set_device(device)
+            c = ClusterEngine(n_nodes=3)
+            c.execute("FT.CREATE", "i", "SCHEMA", "v", "VECTOR", "FLAT", "6",
+                      "TYPE", "FLOAT32", "DIM", "64", "DISTANCE_METRIC", "L2")
+            for i, v in enumerate(rows):
+                c.hset(f"k{i}", {"v": v.tobytes()})
+            sizes = [len(n.engine.keyspace) for n in c.nodes]
+            assert min(sizes) > 129_024, sizes
+            _cluster_knn(c, queries[:1])  # publish
+            bs.reset_launches()
+            replies.append(_cluster_knn(c, queries))
+            if device == "cuda":
+                assert bs.launch_counts().get("bucket_scan_bf16", 0) == (
+                    3 * len(queries))
+                st = c.nodes[0].engine.manager.get("i").attribute("v").index
+                assert st.store.device.type == "cuda"
+    finally:
+        set_device("cuda")
+        config.set_config("search.corpus-dtype", saved)
+    for got, want, q in zip(replies[0], replies[1], queries):
+        keys_g, keys_w = got[1::2], want[1::2]
+        dist_g = [float(r[1]) for r in got[2::2]]
+        dist_w = [float(r[1]) for r in want[2::2]]
+        tol = 1e-5 * float(q @ q)
+        assert keys_g == keys_w or np.allclose(dist_g, dist_w, atol=2 * tol)
+        assert keys_g[0] == keys_w[0]
+
+
+@pytest.mark.cuda
+def test_a_node_process_serves_knn_on_the_card_by_default(dev):
+    """python -m valkey_search_tpu_torch.cluster.transport with no
+    --device: the node's stores live on cuda:0, it answers _NODE.ID and a
+    KNN, and stops on SIGTERM."""
+    import os
+    import subprocess
+    import sys
+
+    from valkey_search_tpu_torch.cluster.transport import RespConnection
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=repo)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "valkey_search_tpu_torch.cluster.transport",
+         "--node-id", "g0", "--port", "0"], stdout=subprocess.PIPE,
+        stderr=subprocess.DEVNULL, env=env, text=True)
+    try:
+        line = proc.stdout.readline().strip()
+        assert line.startswith("READY "), line
+        c = RespConnection(("127.0.0.1", int(line.split()[1])))
+        assert c.cmd("_NODE.ID") == b"g0"
+        assert c.cmd("FT.CREATE", "i", "SCHEMA", "v", "VECTOR", "FLAT", "6",
+                     "TYPE", "FLOAT32", "DIM", "16", "DISTANCE_METRIC",
+                     "L2") == "OK"
+        rows = np.random.default_rng(32).standard_normal((200, 16)).astype(
+            np.float32)
+        for i, v in enumerate(rows):
+            c.cmd("HSET", f"k{i}", "v", v.tobytes())
+        reply = c.cmd("FT.SEARCH", "i", "*=>[KNN 3 @v $q]", "PARAMS", "2",
+                      "q", rows[7].tobytes(), "NOCONTENT")
+        assert reply[0] == 3 and reply[1] == b"k7"
+        c.close()
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)

@@ -12,12 +12,15 @@ copies of the JAX package's host modules behave as the originals do.
   cancellation tokens and the query batcher against the reference's.
 - The modules copied whole (``expr``, ``log``, ``threadmon``, ``acl``,
   ``ft_aggregate``, ``info``, ``version``, ``persistence``'s ``format``,
-  ``journal`` and ``checkpoint``, ``lua``) are the reference's code with
-  the package name changed, statement for statement. ``ingestion`` carries
+  ``journal`` and ``checkpoint``, ``lua``, ``cluster``'s ``metadata`` and
+  ``node``) are the reference's code with the package name changed,
+  statement for statement. ``ingestion`` carries
   one repair and is held by behaviour (``tests/test_torch_ingestion.py``);
   ``server/resp.py`` is the reference's statement for statement apart from
   its forked BGSAVE and its command line (held by behaviour in
-  ``tests/test_torch_resp.py`` and ``tests/test_torch_persistence.py``).
+  ``tests/test_torch_resp.py`` and ``tests/test_torch_persistence.py``),
+  and ``cluster/transport.py`` apart from its two repairs and its command
+  line (``tests/test_torch_cluster_interop.py``).
 """
 
 import ast
@@ -98,6 +101,7 @@ def _code_without_docstring(path, package):
     "server/acl.py", "server/ft_aggregate.py", "runtime/info.py",
     "version.py", "persistence/__init__.py", "persistence/format.py",
     "persistence/journal.py", "persistence/checkpoint.py", "server/lua.py",
+    "cluster/metadata.py", "cluster/node.py",
 ])
 def test_copied_module_is_the_reference_code(rel):
     assert (_code_without_docstring(f"valkey_search_tpu_torch/{rel}",
@@ -111,9 +115,9 @@ def test_copied_module_is_the_reference_code(rel):
 _RESP_CHANGED = {"_engine_aux_locks", "_detach_after_fork", "bgsave_forked"}
 
 
-def _resp_statements(path, package):
-    """resp.py's statements, its docstring, the changed functions and the
-    ``__main__`` block dropped; each as an AST dump."""
+def _statements_but(path, package, changed):
+    """A module's statements, its docstring, the functions named in
+    ``changed`` and the ``__main__`` block dropped; each as an AST dump."""
     tree = ast.parse(_renamed_source(path, package), path)
     out = []
     for node in tree.body[1:]:
@@ -121,11 +125,15 @@ def _resp_statements(path, package):
             continue
         if isinstance(node, ast.ClassDef):
             for item in node.body:
-                if getattr(item, "name", None) not in _RESP_CHANGED:
+                if getattr(item, "name", None) not in changed:
                     out.append(f"{node.name}: {ast.dump(item)}")
-        elif getattr(node, "name", None) not in _RESP_CHANGED:
+        elif getattr(node, "name", None) not in changed:
             out.append(ast.dump(node))
     return out
+
+
+def _resp_statements(path, package):
+    return _statements_but(path, package, _RESP_CHANGED)
 
 
 def _renamed_source(path, package):
@@ -145,6 +153,32 @@ def test_resp_server_is_the_reference_code_but_its_fork_path():
         "valkey_search_tpu_torch/server/resp.py", "valkey_search_tpu_torch")))
         if isinstance(n, (ast.FunctionDef, ast.ClassDef))}
     assert _RESP_CHANGED <= names
+
+
+# the port's cluster transport differs from the reference's in the two
+# repairs of a replica that records its own primary as a peer shard (it fans
+# out to it; promotion keeps it and dials it) and in its command line's
+# --device; _fanout_peers is new
+_TRANSPORT_CHANGED = {"_fanout_peers", "_query_fans_out", "_coordinator",
+                      "become_replica_of", "promote_to_primary", "main"}
+
+
+def test_cluster_transport_is_the_reference_code_but_its_repairs():
+    port = _statements_but("valkey_search_tpu_torch/cluster/transport.py",
+                           "valkey_search_tpu_torch", _TRANSPORT_CHANGED)
+    ref = _statements_but("valkey_search_tpu/cluster/transport.py",
+                          "valkey_search_tpu", _TRANSPORT_CHANGED)
+    assert port == ref
+    names = {n.name for n in ast.walk(ast.parse(_renamed_source(
+        "valkey_search_tpu_torch/cluster/transport.py",
+        "valkey_search_tpu_torch")))
+        if isinstance(n, (ast.FunctionDef, ast.ClassDef))}
+    assert _TRANSPORT_CHANGED <= names
+    # the reference has no _fanout_peers; everything else it changes exists
+    ref_names = {n.name for n in ast.walk(ast.parse(_renamed_source(
+        "valkey_search_tpu/cluster/transport.py", "valkey_search_tpu")))
+        if isinstance(n, (ast.FunctionDef, ast.ClassDef))}
+    assert _TRANSPORT_CHANGED - ref_names == {"_fanout_peers"}
 
 
 # -- config --------------------------------------------------------------------
