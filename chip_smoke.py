@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Build the PyTorch/CUDA port's kernels and drive its FT.SEARCH and
-FT.AGGREGATE paths, its RESP server, its persistence and its cluster layer
-on one GPU.
+FT.AGGREGATE paths, its RESP server, its persistence, its cluster layer,
+its sharded mesh programs and its IVF tier beyond device memory on one GPU.
 
 Run from the root of a checkout, on a machine with an NVIDIA H100:
 
@@ -156,6 +156,49 @@ Phases (each failure exits non-zero; there is no CPU path):
               gossip round FT.SEARCH through the replica counts 5,000 (not
               10,000); the primary SIGKILLed and the replica promoted, it
               counts 5,000, then 5,001 after an HSET; the process is gone.
+8. mesh     - parallel/ on a four-shard mesh (make_mesh cycles the visible
+              cards: on one card all four shards share cuda:0 and run one
+              after another). (a) sharded_flat_topk over the slice's 1M
+              corpus (~250,000 rows a shard) at B = 1,024: ids equal to the
+              unsharded flat_topk's on >= 99.9% of rows, recall@10 >= 0.999
+              against fp64 ground truth, versions' min equal to their max;
+              two_stage recall >= 0.99; QPS (median of 5) of each beside the
+              unsharded search. (b) sharded_batch_update of 1,024 rows over
+              every shard: each new row first for its own query, at a
+              distance <= 1e-5 of |q|^2, and the input unchanged;
+              consistent_sharded_topk: one stale shard takes 2 snapshots, a
+              dead shard with partial_ok returns none of its rows. (c) the
+              2 x 2 mesh's replicated_sharded_flat_topk equal to (a)'s exact
+              ids. (d) dim_sharded_flat_topk over 4 x 32 columns at B = 256:
+              ids equal to the unsharded top-k's but for ties. (e)
+              ShardedHnswIndex (M 16, EF_CONSTRUCTION 200) over 65,536 rows
+              through add_record, shard sizes those of crc32 % 4;
+              search_batch at ef 10, 50 and 100, B = 1,024: recall@10 and
+              QPS; behind the seeded @cat:{c7} mask no doc outside; 100
+              removed keys never return. (e2) exact_search_batch over
+              280,000 rows (each shard's device bulk build, ~70,000 rows, so
+              each shard's scan reaches the fused kernels): under int8 and
+              bfloat16, unfiltered and behind @cat:{c7}, every shard
+              launches K1 or K2, recall@10 >= 0.99 against the unsharded
+              fp32 flat_topk, no doc outside the mask. (f)
+              sharded_ivf_topk and sharded_ivf_topk_rescored over the ivf
+              phase's 10M mirror split four ways (its fp32 rows in slot
+              order beside it), probe 16,
+              B = 1,024 and 16,384: QPS (median of 5), recall, each shard's
+              local time and the merge's (CUDA events), the rescored recall
+              >= the single-card ivf_search_rescored's - 0.001. (g)
+              entry.dryrun_multichip(4) and entry.entry()'s walk on the card;
+9. ivf_streaming - the bench's 100M cell: build_ivf_streaming over 154 chunks
+              of 655,360 rows (100,925,440 x 128) generated on the card from
+              per-chunk seeded generators (chunk 0 regenerated bit-equal),
+              block_rows 1,024, block_align 1,024, timed by stage; exact
+              fp32 ground truth of 32 queries from the build's first sight
+              of each chunk; the build's peak allocated memory under a third
+              of the fp32 corpus's bytes; ivf_search_batch at probe 64, 128
+              and 256 and ivf_search_rescored_streaming at 128 and 256, B =
+              512 (recall@10 >= 0.99 rescored at 256); the 154 chunks
+              regenerated alone (CUDA events). Neither phase launches K1-K3
+              but for (e2), whose launches it counts (checked).
 
 The next-to-last line is the card's name and power limit as nvidia-smi gives
 them; the line before it the kernels' JSON record; the last line the result.
@@ -325,6 +368,30 @@ CLUSTER_QUERIES = 256
 N_TRIO = 130_000
 N_FAILOVER = 5_000
 AGG_CLUSTER_K = 100
+# the mesh phase: four shards (on one card all on cuda:0) over the slice's
+# 1M corpus, a ShardedHnswIndex the size of the hnsw phase's engine index
+# and one of 280,000 rows for its exact scan, and the ivf phase's 10M
+# mirror split four ways
+MESH_SHARDS = 4
+MESH_B = 1024
+MESH_DIM_B = 256
+MESH_AGREE = 0.999  # rows whose ids equal the unsharded search's
+MESH_EXACT_FLOOR = 0.999
+N_MESH_HNSW = 65_536
+# (e2): ~70,000 rows a shard give each shard's store the capacity 131,072,
+# from which its exact scan reaches the fused kernels
+N_MESH_EXACT = 280_000
+MESH_IVF_PROBE = 16
+MESH_IVF_BATCHES = (1024, 16384)
+MESH_RESCORED_SLACK = 0.001
+# the ivf_streaming phase: the bench's 100M cell (bench.py:918-1060), 154
+# chunks of 655,360 rows made on the card, never resident together
+N_STREAM_CHUNKS = 154
+STREAM_CHUNK = 655_360
+STREAM_GT = 32
+STREAM_B = 512
+STREAM_PROBES = (64, 128, 256)
+STREAM_RESCORED_PROBES = (128, 256)
 IVF_COUNTERS = ("ivf_mirror_builds", "ivf_served_searches",
                 "ivf_stage2_grouped", "ivf_stage2_steps")
 
@@ -2626,7 +2693,7 @@ def qps_record(b: int, times, ids, gt) -> dict:
             "recall": recall(ids[:len(gt)], gt[:len(ids)])}
 
 
-def ivf_phase(torch, bs, dev, gpu: str, stats: dict) -> None:
+def ivf_phase(torch, bs, dev, gpu: str, stats: dict, keep: dict) -> None:
     """(b) A FLAT index of N_IVF x 128 rows of the SIFT-like recipe
     (ivf_corpus) through bulk_load, at the default search.ivf-threshold:
     the first search builds the mirror on the card (build_ivf_device, its
@@ -2782,6 +2849,8 @@ def ivf_phase(torch, bs, dev, gpu: str, stats: dict) -> None:
     check(builds["build_ivf"]["probe"] == builds["build_ivf_device"]["probe"]
           and abs(gap) <= IVF_HOST_TOLERANCE,
           f"build_ivf recall {gap:+.4f} from build_ivf_device's")
+    # the mesh phase splits this mirror four ways
+    keep.update(mirror=mirror, corpus=corpus, queries=queries, gt=gt)
     del index, snap, sub, mirror
     gc.collect()
     torch.cuda.empty_cache()
@@ -3240,6 +3309,511 @@ def cluster_phase(torch, bs, dev, gpu, corpus, queries, cats) -> dict:
     return stats
 
 
+
+# ---------------------------------------------------------------------------
+# phase 8: the mesh (parallel/), four shards on the visible cards
+# ---------------------------------------------------------------------------
+
+
+def _agree(ids, want) -> float:
+    """Share of rows whose ids equal ``want``'s in order."""
+    return float(np.mean((np.asarray(ids) == np.asarray(want)).all(1)))
+
+
+def _equal_but_ties(torch, ids, d, want_ids, want_d, queries, corpus_t):
+    """Rows whose ids differ from ``want_ids``, and how many of them hold
+    the same distances (within 1e-5 of |q|^2 + |x|^2): ties reordered."""
+    ids, want_ids = np.asarray(ids), np.asarray(want_ids)
+    d, want_d = np.asarray(d), np.asarray(want_d)
+    rows = np.nonzero((ids != want_ids).any(1))[0]
+    csq = (corpus_t[torch.as_tensor(np.maximum(want_ids[rows], 0),
+                                    device=corpus_t.device)] ** 2).sum(-1)
+    terms = (queries[rows] ** 2).sum(1)[:, None] + csq.cpu().numpy()
+    tied = (np.abs(d[rows] - want_d[rows]) <= 1e-5 * terms).all(1)
+    return len(rows), int(tied.sum())
+
+
+def mesh_flat(torch, pm, topk_ops, mesh, dev, gpu, corpus_t, queries,
+              gt) -> dict:
+    """(a) sharded_flat_topk over the slice's corpus, exact and two-stage,
+    beside the unsharded flat_topk; (c) the 2 x 2 mesh's replicated search
+    on the same queries."""
+    rows = corpus_t.shape[0] // MESH_SHARDS
+    q = torch.from_numpy(queries[:MESH_B]).to(dev)
+    out = {}
+    (wd, wi), times = timed(
+        torch, lambda: topk_ops.flat_topk(q, corpus_t, K, block_rows=rows))
+    wi = wi.cpu().numpy()
+    out["unsharded"] = qps_record(MESH_B, times, wi, gt)
+    (d, i, v), times = timed(torch, lambda: pm.sharded_flat_topk(
+        mesh, corpus_t, q, K, block_rows=rows))
+    ids = i.cpu().numpy()
+    out["exact"] = {**qps_record(MESH_B, times, ids, gt),
+                    "agree": _agree(ids, wi), "versions": v.tolist()}
+    (d2, i2, _), times = timed(torch, lambda: pm.sharded_flat_topk(
+        mesh, corpus_t, q, K, block_rows=rows, two_stage=True))
+    out["two_stage"] = qps_record(MESH_B, times, i2.cpu().numpy(), gt)
+    mesh2 = pm.make_mesh_2d(2, 2)
+    (rd, ri), times = timed(torch, lambda: pm.replicated_sharded_flat_topk(
+        mesh2, corpus_t, q, K))
+    ri = ri.cpu().numpy()
+    out["replicated_2x2"] = {
+        **qps_record(MESH_B, times, ri, gt), "agree_with_exact": _agree(
+            ri, ids),
+        "devices": [str(x) for x in mesh2.devices.flat]}
+    for name, rec in out.items():
+        log(f"mesh (a/c) {name} B={MESH_B}: " + json.dumps(rec), gpu)
+    check(out["exact"]["agree"] >= MESH_AGREE,
+          f"sharded ids equal the unsharded on {out['exact']['agree']}")
+    check(out["exact"]["recall"] >= MESH_EXACT_FLOOR,
+          f"sharded exact recall {out['exact']['recall']}")
+    check(v[0] == v[1], f"clean snapshot's versions {v.tolist()}")
+    check(out["two_stage"]["recall"] >= RECALL_FLOOR,
+          f"sharded two-stage recall {out['two_stage']['recall']}")
+    check(out["replicated_2x2"]["agree_with_exact"] >= MESH_AGREE,
+          "the 2 x 2 mesh's ids equal (a)'s on "
+          f"{out['replicated_2x2']['agree_with_exact']}")
+    return out
+
+
+def mesh_update(torch, pm, mesh, dev, gpu, corpus_t, queries) -> dict:
+    """(b) sharded_batch_update of MESH_B rows over every shard, the
+    version retry and a dead shard's partial result."""
+    rows = corpus_t.shape[0] // MESH_SHARDS
+    rng = np.random.default_rng(5)
+    upd = np.sort(rng.choice(corpus_t.shape[0], MESH_B, replace=False))
+    per_shard = np.bincount(upd // rows, minlength=MESH_SHARDS)
+    check((per_shard > 0).all(), f"updates a shard {per_shard.tolist()}")
+    new = torch.from_numpy(queries[-MESH_B:]).to(dev)  # recipe rows, unseen
+    before = corpus_t.clone()
+    t0 = time.perf_counter()
+    updated = pm.sharded_batch_update(mesh, corpus_t, upd, new)
+    torch.cuda.synchronize()
+    update_s = time.perf_counter() - t0
+    check(torch.equal(corpus_t, before), "the update wrote into its input")
+    del before
+    d, i, _ = pm.sharded_flat_topk(mesh, updated, new, 1, block_rows=rows)
+    first = i[:, 0].cpu().numpy()
+    dist = d[:, 0].cpu().numpy()
+    qsq = (queries[-MESH_B:].astype(np.float64) ** 2).sum(1)
+    out = {"update_s": update_s, "rows_a_shard": per_shard.tolist(),
+           "found_first": float(np.mean(first == upd)),
+           "max_distance": float(dist.max()),
+           "max_distance_over_qsq": float((np.abs(dist) / qsq).max())}
+    check(out["found_first"] == 1.0, f"updated rows first on "
+          f"{out['found_first']}")
+    # the l2 expansion in fp32 cancels to ~0.3 at |q|^2 ~ 3e6: the bound
+    # is relative to |q|^2, as the IVF overlay's check
+    check(out["max_distance_over_qsq"] <= 1e-5,
+          f"updated rows at distance {out['max_distance']}")
+
+    q = torch.from_numpy(queries[:MESH_B]).to(dev)
+    calls = {"n": 0}
+    # consistent_sharded_topk scans at flat_topk's default block of 131,072
+    # rows, which a shard's rows must be a multiple of (in both packages):
+    # the first 4 x 131,072 rows of the updated corpus
+    cons = updated[:MESH_SHARDS * 131072]
+    rows = cons.shape[0] // MESH_SHARDS
+
+    def snapshot():
+        calls["n"] += 1
+        v = torch.full((MESH_SHARDS,), 4, dtype=torch.int32)
+        if calls["n"] == 1:
+            v[-1] = 3  # one stale shard on the first attempt
+        return cons, v, None
+
+    t0 = time.perf_counter()
+    _, _, partial = pm.consistent_sharded_topk(mesh, snapshot, q, K)
+    out["retry_s"] = time.perf_counter() - t0
+    out["snapshots"] = calls["n"]
+    _, ip, partial_dead = pm.consistent_sharded_topk(
+        mesh, snapshot, q, K, partial_ok=True, dead_shards=[1])
+    ip = ip.cpu().numpy()
+    out["dead_shard_ids"] = int(((ip >= rows) & (ip < 2 * rows)).sum())
+    log("mesh (b) update and consistency: " + json.dumps(out), gpu)
+    check(out["snapshots"] == 2 and not partial,
+          f"{out['snapshots']} snapshots for one stale shard")
+    check(partial_dead and out["dead_shard_ids"] == 0 and (ip >= 0).all(),
+          f"dead shard 1: {out['dead_shard_ids']} of its ids returned")
+    return out
+
+
+def mesh_dims(torch, pm, topk_ops, mesh, dev, gpu, corpus_t, queries) -> dict:
+    """(d) dim_sharded_flat_topk over 4 x 32 columns against the unsharded
+    exact top-k."""
+    rows = corpus_t.shape[0] // MESH_SHARDS
+    qn = queries[:MESH_DIM_B]
+    q = torch.from_numpy(qn).to(dev)
+    wd, wi = topk_ops.flat_topk(q, corpus_t, K, block_rows=rows)
+    (d, i), times = timed(torch, lambda: pm.dim_sharded_flat_topk(
+        mesh, corpus_t, q, K))
+    differ, tied = _equal_but_ties(torch, i.cpu(), d.cpu(), wi.cpu(),
+                                   wd.cpu(), qn, corpus_t)
+    out = {"qps": MESH_DIM_B / float(np.median(times)),
+           "ms": [t * 1e3 for t in times], "rows_differ": differ,
+           "rows_differ_by_ties": tied}
+    log(f"mesh (d) dim-sharded B={MESH_DIM_B}: " + json.dumps(out), gpu)
+    check(differ == tied, f"dim-sharded ids differ on {differ} rows, "
+          f"{differ - tied} not by ties")
+    return out
+
+
+def mesh_hnsw(torch, fanout, mesh, dev, gpu, corpus, queries, cats,
+              c64) -> dict:
+    """(e) ShardedHnswIndex over N_MESH_HNSW rows through add_record."""
+    import zlib
+
+    idx = fanout.ShardedHnswIndex(dim=D, m=16, ef_construction=200,
+                                  mesh=mesh)
+    t0 = time.perf_counter()
+    for i in range(N_MESH_HNSW):
+        idx.add_record(f"m{i}", corpus[i])
+    out = {"add_s": time.perf_counter() - t0}
+    sizes = [s.count() for s in idx.shards]
+    want = np.bincount([zlib.crc32(f"m{i}".encode()) % MESH_SHARDS
+                        for i in range(N_MESH_HNSW)], minlength=MESH_SHARDS)
+    out["shard_rows"] = sizes
+    check(sizes == want.tolist(), f"shard sizes {sizes}, crc32 gives "
+          f"{want.tolist()}")
+    docs_of = np.array([idx.interner.lookup(f"m{i}")
+                        for i in range(N_MESH_HNSW)])
+    sub = c64[:N_MESH_HNSW]
+    gt = fp64_gt(torch, sub, (sub * sub).sum(1), queries[:N_GT], K, dev)
+    gt_docs = docs_of[gt]
+    walk = {}
+    for ef in HNSW_EFS:
+        (_, docs), times = timed(torch, lambda: idx.search_batch(
+            queries[:HNSW_B], K, ef=ef), reps=3)
+        walk[f"ef={ef}"] = qps_record(HNSW_B, times, docs, gt_docs)
+        log(f"mesh (e) ShardedHnswIndex ef {ef} B={HNSW_B}: "
+            + json.dumps(walk[f"ef={ef}"]), gpu)
+    out["walk"] = walk
+    allowed = np.zeros(idx.interner.capacity, bool)
+    allowed[docs_of[cats[:N_MESH_HNSW] == 7]] = True
+    _, fdocs = idx.search_batch(queries[:N_GT], K, ef=HNSW_EF,
+                                filter_mask=torch.from_numpy(allowed).to(dev))
+    out["filtered_outside"] = int((~allowed[fdocs[fdocs >= 0]]).sum())
+    out["filtered_returned"] = int((fdocs >= 0).sum())
+    _, top = idx.search_batch(queries[:HNSW_B], 1, ef=HNSW_EF)
+    gone = list(dict.fromkeys(int(x) for x in top[:, 0] if x >= 0))[:100]
+    for doc in gone:
+        idx.remove_record(idx.interner.key_of(doc))
+    _, after = idx.search_batch(queries[:HNSW_B], K, ef=HNSW_EF)
+    out["removed"] = len(gone)
+    out["removed_returned"] = int(np.isin(after, gone).sum())
+    out["count_after_remove"] = idx.count()
+    log("mesh (e) ShardedHnswIndex: " + json.dumps(
+        {k: v for k, v in out.items() if k != "walk"}), gpu)
+    check(walk[f"ef={HNSW_EF}"]["recall"] >= HNSW_WALK_FLOOR,
+          f"sharded walk recall {walk[f'ef={HNSW_EF}']['recall']}")
+    check(out["filtered_outside"] == 0 and out["filtered_returned"] > 0,
+          f"@cat:{{c7}} mask: {out['filtered_outside']} docs outside")
+    check(len(gone) == 100 and out["removed_returned"] == 0
+          and out["count_after_remove"] == N_MESH_HNSW - 100,
+          f"{out['removed_returned']} of {len(gone)} removed keys returned")
+    return out
+
+
+def mesh_hnsw_exact(torch, bs, fanout, topk_ops, mesh, dev, gpu, corpus,
+                    corpus_t, queries, cats) -> dict:
+    """(e2) ShardedHnswIndex.exact_search_batch over N_MESH_EXACT rows, each
+    shard loaded by its own device bulk build: each shard's masked scan (K1
+    under int8, K2 under bfloat16), unfiltered and behind @cat:{c7}, merged
+    on the host, against the unsharded fp32 flat_topk over the same rows.
+    ``launches`` is every K1-K3 launch of this step."""
+    from valkey_search_tpu_torch.runtime import config
+
+    n = N_MESH_EXACT
+    idx = fanout.ShardedHnswIndex(dim=D, m=16, ef_construction=200,
+                                  mesh=mesh)
+    keys = [f"x{i}" for i in range(n)]
+    owner = np.array([idx.shard_of(k) for k in keys])
+    step_before = bs.launch_counts()
+    t0 = time.perf_counter()
+    for s, shard in enumerate(idx.shards):
+        rows = np.nonzero(owner == s)[0]
+        shard.bulk_load([keys[i] for i in rows], corpus[rows])
+    out = {"bulk_load_s": time.perf_counter() - t0,
+           "capacities": [sh.store.capacity for sh in idx.shards]}
+    check(min(out["capacities"]) >= 131072,
+          f"shard capacities {out['capacities']} under the fused scan's")
+    docs_of = np.array([idx.interner.lookup(k) for k in keys])
+    q = queries[:MESH_B]
+    qt = torch.from_numpy(q).to(dev)
+    c7 = cats[:n] == 7
+    allowed = np.zeros(idx.interner.capacity, bool)
+    allowed[docs_of[c7]] = True
+    saved = config.get("search.corpus-dtype")
+    try:
+        for dtype, kernel in (("int8", "bucket_scan_i8_packed[pre_shift=0]"),
+                              ("bfloat16", "bucket_scan_bf16")):
+            config.set_config("search.corpus-dtype", dtype)
+            for flt, rows_ok in (("*", None), ("@cat:{c7}", c7)):
+                fm = None if rows_ok is None else torch.from_numpy(
+                    allowed).to(dev)
+                _, want = topk_ops.flat_topk(
+                    qt, corpus_t[:n], K, block_rows=n,
+                    filter_mask=None if rows_ok is None
+                    else torch.from_numpy(rows_ok).to(dev))
+                want = docs_of[want.cpu().numpy()]
+                before = bs.launch_counts()[kernel]
+                _, docs = idx.exact_search_batch(q, K, filter_mask=fm)
+                launched = bs.launch_counts()[kernel] - before
+                _, times = timed(torch, lambda: idx.exact_search_batch(
+                    q, K, filter_mask=fm), reps=3)
+                rec = {**qps_record(MESH_B, times, docs, want),
+                       "kernel": kernel, "launches": launched}
+                if rows_ok is not None:
+                    rec["outside"] = int((~allowed[docs[docs >= 0]]).sum())
+                out[f"{dtype} {flt}"] = rec
+                log(f"mesh (e2) exact_search_batch {dtype} {flt!r} "
+                    f"B={MESH_B}: " + json.dumps(rec), gpu)
+                check(launched >= MESH_SHARDS,
+                      f"exact_search_batch {dtype} {flt}: {launched} "
+                      f"launches of {kernel} over {MESH_SHARDS} shards")
+                check(rec["recall"] >= RECALL_FLOOR,
+                      f"exact_search_batch {dtype} {flt}: recall "
+                      f"{rec['recall']} against the unsharded flat_topk")
+                check(rec.get("outside", 0) == 0,
+                      f"exact_search_batch {flt}: docs outside the mask")
+    finally:
+        config.set_config("search.corpus-dtype", saved)
+    after = bs.launch_counts()
+    out["launches"] = {k: after[k] - step_before[k] for k in after
+                       if after[k] != step_before[k]}
+    log("mesh (e2) exact_search_batch: " + json.dumps(
+        {k: v for k, v in out.items() if k in ("bulk_load_s", "capacities",
+                                               "launches")}), gpu)
+    return out
+
+
+def mesh_ivf(torch, pm, ivf_ops, mesh, dev, gpu, ivf_keep) -> dict:
+    """(f) both sharded IVF programs over the ivf phase's 10M mirror, split
+    four ways, beside the single-card ivf_search_rescored at the same
+    probe: QPS, recall, each shard's local time and the merge's."""
+    mirror, corpus, queries, gt = (ivf_keep[k] for k in
+                                   ("mirror", "corpus", "queries", "gt"))
+    check(mirror.n_blocks % MESH_SHARDS == 0,
+          f"{mirror.n_blocks} blocks do not split {MESH_SHARDS} ways")
+    devs = pm.shard_devices(mesh)
+    t0 = time.perf_counter()
+    slots = torch.from_numpy(pm.rows_in_slot_order(
+        corpus, mirror.block_ids)).to(dev)
+    out = {"slots_s": time.perf_counter() - t0,
+           "slots_gib": slots.nbytes / 2**30}
+    corpus_t = torch.from_numpy(corpus).to(dev)
+    probe = MESH_IVF_PROBE
+    kc = min(4 * K, mirror.block_rows * min(probe, mirror.n_blocks
+                                              // MESH_SHARDS))
+    shards = pm.shard_index(mirror, devs)
+    slot_parts = [slots[s * (mirror.n_blocks // MESH_SHARDS):
+                        (s + 1) * (mirror.n_blocks // MESH_SHARDS)]
+                  for s in range(MESH_SHARDS)]
+    progs = {
+        "sharded": lambda q: pm.sharded_ivf_topk(mesh, mirror, q, K,
+                                                 probe=probe),
+        "sharded_rescored": lambda q: pm.sharded_ivf_topk_rescored(
+            mesh, mirror, slots, q, K, probe=probe),
+        "single_rescored": lambda q: ivf_ops.ivf_search_rescored(
+            mirror, q, corpus_t, K, probe=probe),
+    }
+    for b in MESH_IVF_BATCHES:
+        q = torch.from_numpy(queries[:b]).to(dev)
+        for name, prog in progs.items():
+            (_, ids), times = timed(torch, lambda: prog(q))
+            out[f"{name}/B={b}"] = qps_record(b, times, ids.cpu().numpy(),
+                                              gt)
+            log(f"mesh (f) IVF {name} probe {probe} B={b}: "
+                + json.dumps(out[f"{name}/B={b}"]), gpu)
+        local = [time_ms(torch, lambda: pm.local_ivf_topk(
+            shards[s], q, K, probe, "l2", 8)) for s in range(MESH_SHARDS)]
+        local_r = [time_ms(torch, lambda: pm.local_ivf_topk_rescored(
+            shards[s], slot_parts[s], q, K, kc, probe, "l2", 8))
+            for s in range(MESH_SHARDS)]
+        parts = [pm.local_ivf_topk(shards[s], q, K, probe, "l2", 8)
+                 for s in range(MESH_SHARDS)]
+        all_d = torch.stack([p[0] for p in parts])
+        all_i = torch.stack([p[1] for p in parts])
+        merge = time_ms(torch, lambda: pm._merge_gathered(all_d, all_i, K))
+        out[f"shard_ms/B={b}"] = {"sharded": local, "sharded_rescored":
+                                  local_r, "merge": merge}
+        log(f"mesh (f) per-shard local ms (CUDA events, one after another "
+            f"on {devs[0]}) B={b}: " + json.dumps(out[f"shard_ms/B={b}"]),
+            gpu)
+    for b in MESH_IVF_BATCHES:
+        got = out[f"sharded_rescored/B={b}"]["recall"]
+        want = out[f"single_rescored/B={b}"]["recall"]
+        check(got >= want - MESH_RESCORED_SLACK,
+              f"sharded rescored recall {got} < single-card {want} at "
+              f"B={b}")
+    del slots, corpus_t
+    return out
+
+
+def mesh_phase(torch, dev, gpu, corpus, queries, cats, ivf_keep) -> dict:
+    """(a)-(g) of the mesh phase on a MESH_SHARDS-shard mesh (make_mesh
+    cycles the visible cards: four shards on cuda:0 on one card)."""
+    from valkey_search_tpu_torch import entry
+    from valkey_search_tpu_torch.ops import bucket_scan as bs
+    from valkey_search_tpu_torch.ops import ivf as ivf_ops
+    from valkey_search_tpu_torch.ops import topk as topk_ops
+    from valkey_search_tpu_torch.parallel import fanout
+    from valkey_search_tpu_torch.parallel import mesh as pm
+
+    mesh = pm.make_mesh(MESH_SHARDS)
+    out = {"devices": [str(x) for x in pm.shard_devices(mesh)]}
+    log(f"mesh: {MESH_SHARDS} shards on {out['devices']}", gpu)
+    corpus_t = torch.from_numpy(corpus).to(dev)
+    c64 = corpus_t.to(torch.float64)
+    gt = fp64_gt(torch, c64, (c64 * c64).sum(1), queries[:MESH_B], K, dev)
+    steps = (
+        ("flat", lambda: mesh_flat(torch, pm, topk_ops, mesh, dev, gpu,
+                                   corpus_t, queries, gt)),
+        ("update", lambda: mesh_update(torch, pm, mesh, dev, gpu, corpus_t,
+                                       queries)),
+        ("dims", lambda: mesh_dims(torch, pm, topk_ops, mesh, dev, gpu,
+                                   corpus_t, queries)),
+        ("hnsw", lambda: mesh_hnsw(torch, fanout, mesh, dev, gpu, corpus,
+                                   queries, cats, c64)),
+        ("hnsw_exact", lambda: mesh_hnsw_exact(
+            torch, bs, fanout, topk_ops, mesh, dev, gpu, corpus, corpus_t,
+            queries, cats)),
+    )
+    for name, step in steps:
+        t0 = time.perf_counter()
+        out[name] = step()
+        log(f"mesh {name} {time.perf_counter() - t0:.1f} s", gpu)
+    del c64, corpus_t
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["ivf"] = mesh_ivf(torch, pm, ivf_ops, mesh, dev, gpu, ivf_keep)
+    log(f"mesh ivf {time.perf_counter() - t0:.1f} s", gpu)
+
+    # (g) the entry points on the card
+    t0 = time.perf_counter()
+    entry.dryrun_multichip(MESH_SHARDS)
+    fn, args = entry.entry()
+    check(args[1].is_cuda, "entry() did not place its queries on the card")
+    d, ids = fn(*args)
+    check(tuple(ids.shape) == (16, 10) and bool(torch.isfinite(d).all())
+          and bool((ids >= 0).all()), "entry()'s walk")
+    out["entry_s"] = time.perf_counter() - t0
+    log(f"mesh (g) dryrun_multichip({MESH_SHARDS}) and entry() on the card "
+        f"{out['entry_s']:.1f} s", gpu)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the IVF tier beyond device memory, 100M rows from a chunk source
+# ---------------------------------------------------------------------------
+
+
+def ivf_streaming_phase(torch, dev, gpu, queries) -> dict:
+    """build_ivf_streaming over N_STREAM_CHUNKS chunks generated on the card
+    (the bench's 100M recipe), the exact ground truth of STREAM_GT queries
+    riding the build's first sight of each chunk; ivf_search_batch and
+    ivf_search_rescored_streaming at B = STREAM_B."""
+    from valkey_search_tpu_torch.ops import ivf as ivf_ops
+
+    n = N_STREAM_CHUNKS * STREAM_CHUNK
+    corpus_bytes = n * D * 4
+    rng = np.random.default_rng(42)
+    centers = torch.as_tensor(
+        rng.standard_normal((N_CENTERS, D)).astype(np.float32) * 60 + 128,
+        device=dev)
+
+    def generate(ci):
+        gen = torch.Generator(device=dev).manual_seed(31_000 + ci)
+        a = torch.randint(0, N_CENTERS, (STREAM_CHUNK,), generator=gen,
+                          device=dev)
+        z = torch.randn((STREAM_CHUNK, D), generator=gen, device=dev)
+        return (centers[a] + z * 20).clamp_(0, 255)
+
+    gtq = torch.from_numpy(queries[:STREAM_GT]).to(dev)
+    gt_parts = {}
+
+    def chunk(ci):
+        xc = generate(ci)
+        if ci not in gt_parts:
+            dd = (xc * xc).sum(1)[None, :] - 2.0 * (gtq @ xc.T)
+            v, am = torch.topk(dd, K, largest=False)
+            part = (v.cpu().numpy(), am.cpu().numpy() + ci * STREAM_CHUNK)
+            gt_parts[ci] = part  # stored once the device call returned
+        return xc
+
+    check(torch.equal(generate(0), generate(0)),
+          "chunk 0 regenerated is not bit-equal")
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    out = {"rows": n, "chunks": N_STREAM_CHUNKS,
+           "allocated_before_gib": before / 2**30}
+    torch.cuda.reset_peak_memory_stats(dev)
+    timings = {}
+    t0 = time.perf_counter()
+    index = ivf_ops.build_ivf_streaming(
+        chunk, N_STREAM_CHUNKS, block_rows=1024, block_align=1024,
+        timings=timings, log_fn=lambda m: log(m, gpu))
+    torch.cuda.synchronize()
+    out["build_s"] = time.perf_counter() - t0
+    out["stages_s"] = timings
+    peak = torch.cuda.max_memory_allocated(dev)
+    out["peak_gib"] = peak / 2**30
+    out["build_peak_gib"] = (peak - before) / 2**30  # the build's own
+    out["index_gib"] = index.device_bytes() / 2**30
+    out["corpus_gib"] = corpus_bytes / 2**30
+    out["n_blocks"] = index.n_blocks
+    log("ivf_streaming build: " + json.dumps(out), gpu)
+    check(len(gt_parts) == N_STREAM_CHUNKS,
+          f"ground truth saw {len(gt_parts)} chunks")
+    check(peak - before < corpus_bytes / 3,
+          f"build peak {out['build_peak_gib']:.2f} GiB, not under a third "
+          f"of the fp32 corpus's {out['corpus_gib']:.1f} GiB")
+    cand_v = np.concatenate([gt_parts[c][0] for c in range(N_STREAM_CHUNKS)],
+                            axis=1)
+    cand_i = np.concatenate([gt_parts[c][1] for c in range(N_STREAM_CHUNKS)],
+                            axis=1)
+    gt = np.take_along_axis(
+        cand_i, np.argsort(cand_v, axis=1, kind="stable")[:, :K], 1)
+
+    # what a streamed rescore pays beside its search: the 154 chunks
+    # regenerated, alone (CUDA events)
+    ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    ev0.record()
+    for ci in range(N_STREAM_CHUNKS):
+        generate(ci)
+    ev1.record()
+    ev1.synchronize()
+    out["regenerate_s"] = ev0.elapsed_time(ev1) / 1e3
+    log(f"ivf_streaming: {N_STREAM_CHUNKS} chunks regenerated alone in "
+        f"{out['regenerate_s']:.3f} s", gpu)
+
+    hq = torch.from_numpy(queries[:STREAM_B]).to(dev)
+    sweep = {}
+    for probe in STREAM_PROBES:
+        (_, ids), times = timed(torch, lambda: ivf_ops.ivf_search_batch(
+            index, hq, k=K, probe=probe, probe_chunk=2), reps=3)
+        sweep[f"probe={probe}"] = qps_record(STREAM_B, times,
+                                             ids.cpu().numpy(), gt)
+        log(f"ivf_streaming probe {probe} B={STREAM_B} (no rescore): "
+            + json.dumps(sweep[f"probe={probe}"]), gpu)
+    for probe in STREAM_RESCORED_PROBES:
+        (_, ids), times = timed(
+            torch, lambda: ivf_ops.ivf_search_rescored_streaming(
+                index, hq, chunk, N_STREAM_CHUNKS, STREAM_CHUNK, k=K,
+                probe=probe, probe_chunk=2), reps=3)
+        sweep[f"rescored/probe={probe}"] = qps_record(
+            STREAM_B, times, ids.cpu().numpy(), gt)
+        log(f"ivf_streaming rescored probe {probe} B={STREAM_B}: "
+            + json.dumps(sweep[f"rescored/probe={probe}"]), gpu)
+    out["sweep"] = sweep
+    r = sweep[f"rescored/probe={max(STREAM_RESCORED_PROBES)}"]["recall"]
+    check(r >= RECALL_FLOOR, f"streaming rescored recall {r} at probe "
+          f"{max(STREAM_RESCORED_PROBES)}")
+    del index
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3295,7 +3869,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     ivf = {"launches": {}}
-    ivf_phase(torch, bs, dev, gpu, ivf)
+    ivf_keep = {}
+    ivf_phase(torch, bs, dev, gpu, ivf, ivf_keep)
     ivf["wall_s"] = time.perf_counter() - t0
     log(f"ivf phase {ivf['wall_s']:.1f} s", gpu)
     log("ivf stats " + json.dumps(ivf), gpu)
@@ -3309,6 +3884,30 @@ def main() -> int:
     log(f"cluster phase {cluster['wall_s']:.1f} s", gpu)
     log("cluster stats " + json.dumps(cluster), gpu)
     _merge_launches(stats["launches"], cluster["launches"])
+    torch.cuda.empty_cache()
+
+    # neither phase below reaches K1-K3 but for mesh (e2)'s exact scans,
+    # which count their own: any other launch there would be a fault
+    bs.reset_launches()
+    t0 = time.perf_counter()
+    mesh = mesh_phase(torch, dev, gpu, data["corpus"], data["queries"],
+                      data["cats"], ivf_keep)
+    mesh["wall_s"] = time.perf_counter() - t0
+    ivf_keep.clear()
+    torch.cuda.empty_cache()
+    log(f"mesh phase {mesh['wall_s']:.1f} s", gpu)
+    log("mesh stats " + json.dumps(mesh), gpu)
+
+    t0 = time.perf_counter()
+    streaming = ivf_streaming_phase(torch, dev, gpu, data["queries"])
+    streaming["wall_s"] = time.perf_counter() - t0
+    log(f"ivf_streaming phase {streaming['wall_s']:.1f} s", gpu)
+    log("ivf_streaming stats " + json.dumps(streaming), gpu)
+    exact = mesh["hnsw_exact"]["launches"]
+    late = {k: v - exact.get(k, 0) for k, v in bs.launch_counts().items()}
+    late = {k: v for k, v in late.items() if v}
+    check(not late, f"the mesh and ivf_streaming phases launched {late} "
+          "outside mesh (e2)")
 
     replaces = {
         "bucket_scan_i8_packed[pre_shift=0]":

@@ -607,3 +607,159 @@ def test_a_node_process_serves_knn_on_the_card_by_default(dev):
         except subprocess.TimeoutExpired:
             proc.kill()
             proc.wait(timeout=30)
+
+
+@pytest.mark.cuda
+def test_mesh_of_four_on_one_card_matches_unsharded(dev):
+    """Four shards on cuda:0 (make_mesh cycles the visible cards): the
+    sharded exact and IVF searches against the unsharded ones on the card,
+    and dryrun_multichip(4) to its end."""
+    from valkey_search_tpu_torch import entry
+    from valkey_search_tpu_torch.parallel import mesh as pm
+
+    mesh = pm.make_mesh(4)
+    assert pm.shard_devices(mesh) == pm.cycle_devices(
+        pm.visible_devices(), 4)
+    rng = np.random.default_rng(41)
+    x = _clustered(rng, 16384, 32)
+    q = x[rng.integers(0, len(x), 64)] + 0.03 * rng.normal(
+        size=(64, 32)).astype(np.float32)
+    xt, qt = torch.from_numpy(x).to(dev), torch.from_numpy(q).to(dev)
+    d, i, v = pm.sharded_flat_topk(mesh, xt, qt, k=10)
+    wd, wi = topk.flat_topk(qt, xt, k=10, block_rows=len(x))
+    assert i.device == xt.device and torch.equal(i, wi)
+    assert torch.allclose(d, wd, rtol=1e-5, atol=1e-5)
+    assert v.tolist() == [0, 0]
+    index = ivf.build_ivf(x, block_rows=128, n_clusters=8, train_sample=4096,
+                          device=dev)
+    sd, si = pm.sharded_ivf_topk(mesh, index, qt, k=10,
+                                 probe=index.n_blocks)
+    ud, ui = ivf.ivf_search_batch(index, qt, k=10, probe=index.n_blocks)
+    assert (si == ui).all(1).float().mean().item() >= 0.99
+    entry.dryrun_multichip(4)
+
+
+@pytest.mark.cuda
+def test_streaming_build_holds_less_than_its_corpus(dev):
+    """build_ivf_streaming from chunks generated on the card: every row in
+    one slot, and the peak allocation during the build below the fp32
+    corpus's bytes (the corpus is never resident)."""
+    n_chunks, ch, d = 32, 65536, 128
+    centers = torch.from_numpy(np.random.default_rng(42).standard_normal(
+        (256, d)).astype(np.float32) * 60 + 128).to(dev)
+
+    def chunk(ci):
+        gen = torch.Generator(device=dev).manual_seed(7000 + ci)
+        a = torch.randint(0, 256, (ch,), generator=gen, device=dev)
+        z = torch.randn((ch, d), generator=gen, device=dev)
+        return (centers[a] + z * 20).clamp_(0, 255)
+
+    assert torch.equal(chunk(3), chunk(3))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    # the sample and the sub-slices small beside the corpus: the k-means
+    # fit's [rows, clusters] products do not shrink with the corpus
+    index = ivf.build_ivf_streaming(chunk, n_chunks, block_rows=256,
+                                    block_align=8, train_sample=16384,
+                                    sub_rows=16384)
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    assert peak < n_chunks * ch * d * 4, (peak, index.device_bytes())
+    ids = index.block_ids.cpu().numpy().reshape(-1)
+    live = ids[ids >= 0]
+    assert len(live) == n_chunks * ch and len(np.unique(live)) == len(live)
+    q = chunk(0)[:32] + 0.5
+    _, ids = ivf.ivf_search_rescored_streaming(
+        index, q, chunk, n_chunks, ch, k=1, probe=32)
+    assert (ids[:, 0].cpu() == torch.arange(32)).float().mean() >= 0.9
+
+
+@pytest.mark.cuda
+def test_sharded_hnsw_with_a_mask_on_the_card(dev):
+    """ShardedHnswIndex with its four shards on the card: the walk finds a
+    row itself, stays inside a doc-space mask, and a removed key never
+    returns; the same keys on a CPU mesh give the same results."""
+    from valkey_search_tpu_torch.parallel import fanout
+    from valkey_search_tpu_torch.parallel import mesh as pm
+
+    rng = np.random.default_rng(43)
+    x = rng.standard_normal((2000, 16)).astype(np.float32)
+    out = {}
+    for where in ("cuda", "cpu"):
+        mesh = pm.make_mesh(4, devices=pm.cycle_devices(
+            pm.visible_devices(where), 4))
+        idx = fanout.ShardedHnswIndex(dim=16, m=8, ef_construction=60,
+                                      mesh=mesh)
+        for i, v in enumerate(x):
+            idx.add_record(f"k{i}", v)
+        assert all(s.store.device.type == where for s in idx.shards)
+        allowed = np.zeros(idx.interner.capacity, bool)
+        for i in range(0, 2000, 7):
+            allowed[idx.interner.lookup(f"k{i}")] = True
+        mask = torch.from_numpy(allowed)
+        if where == "cuda":
+            mask = mask.to(dev)
+        d, docs = idx.search_batch(x[:32], k=10, ef=64, filter_mask=mask)
+        assert allowed[docs[docs >= 0]].all()
+        d0, docs0 = idx.search_batch(x[:32], k=1, ef=64)
+        assert [idx.interner.key_of(int(v)) for v in docs0[:, 0]] == [
+            f"k{i}" for i in range(32)]
+        idx.remove_record("k5")
+        _, docs5 = idx.search_batch(x[5:6], k=5, ef=64)
+        assert "k5" not in {idx.interner.key_of(int(v)) for v in docs5[0]
+                            if v >= 0}
+        out[where] = (d, docs)
+    assert (out["cuda"][1] == out["cpu"][1]).all(1).mean() >= 0.99
+    # a row's distance to itself cancels to ~0 (+-2e-6): atol beside rtol
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-5,
+                               atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_sharded_exact_search_reaches_the_fused_scan_on_every_shard(dev):
+    """ShardedHnswIndex.exact_search_batch over four shards of ~70,000 rows
+    on the card (capacity 131,072 each, each shard's device bulk build):
+    each shard's scan launches K1 under int8 and K2 under bfloat16, the
+    doc-space mask moves to the shards' device, and the host merge agrees
+    with the unsharded fp32 flat_topk."""
+    from valkey_search_tpu_torch.parallel import fanout
+    from valkey_search_tpu_torch.parallel import mesh as pm
+
+    rng = np.random.default_rng(44)
+    n, d, k = 280_000, 32, 10
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    q = rng.standard_normal((16, d)).astype(np.float32)
+    idx = fanout.ShardedHnswIndex(dim=d, m=8, ef_construction=40,
+                                  mesh=pm.make_mesh(4))
+    keys = [f"k{i}" for i in range(n)]
+    owner = np.array([idx.shard_of(key) for key in keys])
+    for s, shard in enumerate(idx.shards):
+        rows = np.nonzero(owner == s)[0]
+        shard.bulk_load([keys[i] for i in rows], x[rows])
+    assert [s.store.capacity for s in idx.shards] == [131072] * 4
+    docs_of = np.array([idx.interner.lookup(key) for key in keys])
+    ok_rows = rng.random(n) < 0.2
+    allowed = np.zeros(idx.interner.capacity, bool)
+    allowed[docs_of[ok_rows]] = True
+    qt, xt = torch.from_numpy(q).to(dev), torch.from_numpy(x).to(dev)
+    for dtype, kernel in (("int8", "bucket_scan_i8_packed[pre_shift=0]"),
+                          ("bfloat16", "bucket_scan_bf16")):
+        with _Options(corpus_dtype=dtype):
+            for rows_ok in (None, ok_rows):
+                fm = None if rows_ok is None else torch.from_numpy(
+                    allowed).to(dev)
+                _, want = topk.flat_topk(
+                    qt, xt, k, block_rows=n,
+                    filter_mask=None if rows_ok is None
+                    else torch.from_numpy(rows_ok).to(dev))
+                want = docs_of[want.cpu().numpy()]
+                bs.reset_launches()
+                _, docs = idx.exact_search_batch(q, k, filter_mask=fm)
+                assert bs.launch_counts()[kernel] == 4
+                hits = np.mean([len(set(a) & set(b)) / k
+                                for a, b in zip(docs, want)])
+                # test_hnsw_scan_route_launches_k1_and_k2's floor for
+                # isotropic d 32 under the int8 coarse pass
+                assert hits >= 0.95
+                if rows_ok is not None:
+                    assert allowed[docs].all()

@@ -48,20 +48,24 @@ Each stage of a search runs inside a ``torch.profiler`` range
 ``ivf.topk``, ``ivf.rescore``, ``ivf.overlay``), so a profile splits a
 search's device time by stage.
 
-Not ported yet: the tier beyond device memory (``build_ivf_streaming``,
-``ivf_search_rescored_streaming`` and their helpers).
+The tier beyond device memory (``build_ivf_streaming``,
+``ivf_search_rescored_streaming``) reads the corpus from a deterministic
+chunk source, pass after pass, and never holds it whole. Torch frees a
+chunk when its last reference drops, so the JAX package's per-chunk
+syncs, jitted fills and donated reshapes have no counterpart.
 """
 
 from __future__ import annotations
 
 import time
-from typing import (Dict, Iterable, Mapping, NamedTuple, Optional, Tuple,
-                    Union)
+from typing import (Callable, Dict, Iterable, Mapping, NamedTuple, Optional,
+                    Tuple, Union)
 
 import numpy as np
 import torch
 from torch.profiler import record_function
 
+from valkey_search_tpu_torch.ops import distance as dist_ops
 from valkey_search_tpu_torch.ops.topk import (_pad_k, _rescore_exact,
                                              topk_smallest)
 from valkey_search_tpu_torch.runtime.device import get_device
@@ -696,6 +700,41 @@ def _assign_proj_at(
 # --------------------------------------------------------------------------
 
 
+def _f32_order_key(x: torch.Tensor) -> torch.Tensor:
+    """int64 keys in [0, 2^32) ordered as the f32 values ``x`` compare
+    (finite values; -0.0 is +0.0 first)."""
+    bits = (x.to(torch.float32) + 0.0).view(torch.int32)
+    ordered = bits ^ ((bits >> 31) & 0x7FFFFFFF)
+    return ordered.to(torch.int64) + (1 << 31)
+
+
+def _layout_plan(
+    assign_d: torch.Tensor, proj_d: torch.Tensor, c2max: int, s: int,
+    block_align: int, by_cluster: bool,
+    pos_live: Optional[np.ndarray] = None,
+) -> Tuple[np.ndarray, np.ndarray, int, int]:
+    """The block layout of a two-level partition -> (order, pos, nb, nb_pad).
+
+    Rows go cell-major (level 2 within level 1, principal axis within a
+    cell): one stable device sort of (assignment, projection), the order of
+    the JAX package's np.lexsort((proj, cell)), cell being the dense rank of
+    the assignment. ``by_cluster`` pads blocks only at level-1 cluster
+    boundaries (``assign // c2max``), else at every cell; empty groups take
+    no block in ``plan_blocks``, so the keys need no dense rank. A block may
+    then straddle adjacent cells of one cluster; its centroid and scale
+    come from its actual members. ``pos_live`` restricts the plan to those
+    rows; ``order`` indexes them (or all rows), ``pos`` is the slot of
+    ``order``'s rows (``plan_blocks``)."""
+    if pos_live is not None:
+        live = torch.from_numpy(pos_live).to(assign_d.device)
+        assign_d, proj_d = assign_d[live], proj_d[live]
+    order = torch.sort((assign_d << 32) | _f32_order_key(proj_d),
+                       stable=True).indices.cpu().numpy()
+    group = (assign_d // c2max if by_cluster else assign_d).cpu().numpy()
+    pos, nb, nb_pad = plan_blocks(group, order, s, block_align=block_align)
+    return order, pos, nb, nb_pad
+
+
 def build_ivf_device(
     dev_vectors: torch.Tensor,
     row_ids: Optional[np.ndarray] = None,
@@ -714,13 +753,13 @@ def build_ivf_device(
     """An IvfIndex from an already-uploaded [cap, d] mirror on its device.
 
     The k-means sample, the assignment products, the projection, the block
-    gather and the quantization read the resident tensor; only O(cap)
-    assignments and projections come to the host for numpy's unique,
-    lexsort and ``plan_blocks``. Rows are addressed by position;
+    gather, the row order (``_layout_plan``) and the quantization run on
+    the device; only the O(cap) order and groups come to the host for
+    ``plan_blocks``. Rows are addressed by position;
     ``present`` (bool [cap]) masks live rows, ``row_ids`` maps position to
     id (default: identity). ``timings``, when given, gains the seconds of
-    each stage: ``sample_fit_s``, ``assign_s``, ``plan_s`` (host unique,
-    lexsort and layout) and ``quantize_s``."""
+    each stage: ``sample_fit_s``, ``assign_s``, ``plan_s`` (the row order
+    on the device, ``plan_blocks`` on the host) and ``quantize_s``."""
     dev = dev_vectors.device
     clock = _StageClock(dev, timings)
     cap, d = dev_vectors.shape
@@ -759,27 +798,19 @@ def build_ivf_device(
         en = min(st + chunk_rows, cap)
         assign_d[st:en], proj_d[st:en] = _assign_proj_at(
             dev_vectors[st:en], cent1, cents2, c2v, pc1, c2max)
-    assign64 = assign_d.cpu().numpy()
-    proj = proj_d.cpu().numpy()
-    del assign_d, proj_d, cent1, cents2, c2v, pc1
+    del cent1, cents2, c2v, pc1
     clock("assign_s")
 
-    a64_live = assign64[pos_live]
-    _, dense = np.unique(a64_live, return_inverse=True)
-    assign = dense.astype(np.int32)
-    _, l1 = np.unique(a64_live // c2max, return_inverse=True)
-    l1 = l1.astype(np.int32)
-    # Rows are ordered cell-major (level 2 within level 1, principal axis
-    # within a cell). Small builds (<= 4,096 blocks) allocate whole blocks
-    # per cell, large ones per level-1 cluster (per-cell tails left blocks
-    # ~55% full at 10M rows in the JAX package's measurements); large builds
-    # pad the block count to a multiple of 1,024, small ones to a power of
-    # two.
-    order = np.lexsort((proj[pos_live], assign))
+    # Small builds (<= 4,096 blocks) allocate whole blocks per cell, large
+    # ones per level-1 cluster (per-cell tails left blocks ~55% full at 10M
+    # rows in the JAX package's measurements); large builds pad the block
+    # count to a multiple of 1,024, small ones to a power of two.
     if block_align <= 0:
         block_align = 1024 if -(-n // s) > 4096 else 0
-    group = l1 if block_align > 0 else assign
-    pos, _nb, nb_pad = plan_blocks(group, order, s, block_align=block_align)
+    order, pos, _nb, nb_pad = _layout_plan(
+        assign_d, proj_d, c2max, s, block_align, by_cluster=block_align > 0,
+        pos_live=pos_live)
+    del assign_d, proj_d
     src_flat = np.full(nb_pad * s, -1, np.int64)   # slot -> device row
     src_flat[pos] = pos_live[order]
     ids_flat = np.full(nb_pad * s, -1, np.int64)   # slot -> row id
@@ -887,6 +918,200 @@ def build_ivf(
         block_vecs.reshape(nb_pad, s, d),
         ids_flat.reshape(nb_pad, s).astype(np.int32),
         host_quantize=host_quantize, device=dev,
+    )
+
+
+# --------------------------------------------------------------------------
+# the tier beyond device memory: builds and rescoring from a chunk source
+# --------------------------------------------------------------------------
+
+
+def _stream_work_bytes(device: torch.device) -> int:
+    """Bytes one sub-slice of a streaming pass may take: a sixteenth of the
+    device's free memory, so the block store, which pass 3 fills, keeps
+    its room."""
+    return _work_bytes(device) // 4
+
+
+def _acc_block_means(csum: torch.Tensor, cnt: torch.Tensor, xc: torch.Tensor,
+                     dslot: torch.Tensor, s: int):
+    """Adds the rows ``xc`` into their blocks' sums and counts, in place
+    (``dslot``: each row's slot in the flat [nb * S] layout)."""
+    blk = dslot // s
+    csum.index_add_(0, blk, xc.to(torch.float32))
+    cnt.index_add_(0, blk, torch.ones(blk.shape[0], dtype=torch.float32,
+                                      device=blk.device))
+    return csum, cnt
+
+
+def _acc_block_amax(amax: torch.Tensor, xc: torch.Tensor, dslot: torch.Tensor,
+                    cents: torch.Tensor, s: int) -> torch.Tensor:
+    """Raises each block's largest |row - centroid| component to cover the
+    rows ``xc``, in place."""
+    blk = dslot // s
+    r = (xc.to(torch.float32) - cents[blk]).abs().amax(1)
+    return amax.scatter_reduce_(0, blk, r, "amax")
+
+
+def _quant_scatter(codes: torch.Tensor, rowsq: torch.Tensor, xc: torch.Tensor,
+                   dslot: torch.Tensor, cents: torch.Tensor,
+                   scale: torch.Tensor, s: int):
+    """Residual-codes the rows ``xc`` as ``quantize_blocks`` does and writes
+    the codes and |reconstruction|^2 into their slots of the flat
+    [nb * S, d] and [nb * S] stores, in place."""
+    blk = dslot // s
+    c = cents[blk]
+    sc = scale[blk][:, None]
+    r = xc.to(torch.float32) - c
+    r.div_(sc).round_().clamp_(-127, 127)     # the codes, as f32
+    codes.index_copy_(0, dslot, r.to(torch.int8))
+    recon = r.mul_(sc).add_(c)                # c + q8 * scale
+    rowsq.index_copy_(0, dslot, (recon * recon).sum(1))
+    return codes, rowsq
+
+
+def build_ivf_streaming(
+    chunk_source: Callable[[int], torch.Tensor],
+    n_chunks: int,
+    *,
+    block_rows: int = 1024,
+    n_clusters: int = 0,
+    kmeans_iters: int = 12,
+    train_sample: int = 0,
+    seed: int = 0x1BF,
+    sub_rows: int = 262144,
+    block_align: int = 1024,
+    log_fn: Optional[Callable[[str], None]] = None,
+    timings: Optional[Dict[str, float]] = None,
+) -> IvfIndex:
+    """An IvfIndex from a CHUNK SOURCE, never holding the fp32 corpus, not on
+    the host and not on the device.
+
+    ``chunk_source(ci)`` returns chunk ci as a [chunk_rows, d] tensor on the
+    build's device and must be deterministic: the build reads the corpus in
+    three passes (assignment; block means, then residual maxima; quantize
+    and scatter), asking for each chunk again instead of keeping it. The
+    residency is the int8 block store plus a chunk and its sub-slices
+    (hnswlib, the reference, holds every fp32 vector, hnswalg.h addPoint).
+
+    The partition is build_ivf_device's (a two-level fit from a sample),
+    the sample taken from chunk 0, so chunks must be alike (generated
+    corpora, shuffled datasets). Passes 2 and 3 update preallocated tensors
+    in place, keyed by the host-planned slot of each row; sub-slices are
+    sized from the device's free memory, at most ``sub_rows`` rows.
+    ``block_align`` pads the block count to a multiple, not a power of two.
+    ``timings``, when given, gains the seconds of each stage:
+    ``sample_fit_s``, ``assign_s`` (pass 1), ``plan_s`` (the row order on
+    the device, ``plan_blocks`` on the host), ``means_s``, ``amax_s``,
+    ``quantize_s``."""
+    def _log(msg):
+        if log_fn is not None:
+            log_fn(f"ivf-streaming: {msg}")
+
+    probe = chunk_source(0)
+    dev = probe.device
+    clock = _StageClock(dev, timings)
+    ch, d = probe.shape
+    s = int(block_rows)
+    n = n_chunks * ch
+    if n_clusters <= 0:
+        n_clusters = int(np.clip(n // (s * 8), 8, 4096))
+    n_clusters = min(n_clusters, max(1, n))
+    if train_sample <= 0:
+        train_sample = int(np.clip(256 * n_clusters, 131072, 1_048_576))
+    train_sample = min(train_sample, ch)
+    _log(f"fit: {train_sample} sample rows, {n_clusters} clusters")
+    cent1, cents2, c2v, pc1, c2max = _fit_two_level_device(
+        probe[:train_sample].to(torch.float32), n_clusters, s, n,
+        kmeans_iters=kmeans_iters, seed=seed)
+    clock("sample_fit_s")
+
+    # ---- pass 1: assignment + projection, chunk by chunk -------------------
+    # per row: three [n_clusters] f32 level-1 temporaries, the [c2max, d]
+    # f32 level-2 gather, the row's bf16 and widened copies
+    per_row = 12 * n_clusters + c2max * (4 * d + 16) + 8 * d
+    chunk_sub = max(1, min(ch, sub_rows, _stream_work_bytes(dev) // per_row))
+    _log(f"fit done; pass 1 (assign), {chunk_sub}-row sub-slices")
+    assign_d = torch.empty(n, dtype=torch.int64, device=dev)
+    proj_d = torch.empty(n, dtype=torch.float32, device=dev)
+    for ci in range(n_chunks):
+        xc = probe if ci == 0 else chunk_source(ci)
+        for st in range(ci * ch, (ci + 1) * ch, chunk_sub):
+            en = min(st + chunk_sub, (ci + 1) * ch)
+            assign_d[st:en], proj_d[st:en] = _assign_proj_at(
+                xc[st - ci * ch:en - ci * ch], cent1, cents2, c2v, pc1, c2max)
+    probe = xc = None
+    del cent1, cents2, c2v, pc1
+    clock("assign_s")
+
+    # ---- layout plan ---------------------------------------------------------
+    # blocks pad only at level-1 cluster boundaries: per-cell padding at ~1
+    # block a cell wasted 38% of the block store in the JAX package's
+    # measurements at ~100M
+    _log("pass 1 done; layout plan")
+    order, pos, _nb, nb_pad = _layout_plan(assign_d, proj_d, c2max, s,
+                                           block_align, by_cluster=True)
+    del assign_d, proj_d
+    _log(f"layout: {_nb} blocks, padded {nb_pad} "
+         f"({nb_pad * s * d / 2**30:.1f} GiB codes)")
+    dst = np.empty(n, np.int64)
+    dst[order] = pos                      # row -> slot in [nb_pad * s]
+    ids_flat = np.full(nb_pad * s, -1, np.int64)
+    ids_flat[pos] = order                 # slot -> row id (identity ids)
+    del order, pos
+    clock("plan_s")
+
+    def _dst_dev(ci):
+        return torch.from_numpy(dst[ci * ch:(ci + 1) * ch]).to(dev)
+
+    # per row of a sub-slice in passes 2 and 3: the gathered centroid, the
+    # residual, the codes
+    qsub = max(1, min(ch, _stream_work_bytes(dev) // (d * 13 + 32)))
+
+    # ---- pass 2: block means, then residual maxima --------------------------
+    csum = torch.zeros((nb_pad, d), dtype=torch.float32, device=dev)
+    cnt = torch.zeros((nb_pad,), dtype=torch.float32, device=dev)
+    for ci in range(n_chunks):
+        _acc_block_means(csum, cnt, chunk_source(ci), _dst_dev(ci), s)
+    cents = csum / cnt.clamp_min(1.0)[:, None]
+    del csum, cnt
+    clock("means_s")
+    _log("pass 2a (means) done")
+    amax = torch.zeros((nb_pad,), dtype=torch.float32, device=dev)
+    for ci in range(n_chunks):
+        xc, dslot = chunk_source(ci), _dst_dev(ci)
+        for st in range(0, ch, qsub):
+            _acc_block_amax(amax, xc[st:st + qsub], dslot[st:st + qsub],
+                            cents, s)
+    scale = amax.clamp_min(1e-30) / 127.0
+    del amax
+    clock("amax_s")
+    _log("pass 2b (residual max) done")
+
+    # ---- pass 3: quantize + scatter into the block store --------------------
+    nslot = nb_pad * s
+    codes = torch.zeros((nslot, d), dtype=torch.int8, device=dev)
+    rowsq = torch.zeros((nslot,), dtype=torch.float32, device=dev)
+    for ci in range(n_chunks):
+        xc, dslot = chunk_source(ci), _dst_dev(ci)
+        for st in range(0, ch, qsub):
+            _quant_scatter(codes, rowsq, xc[st:st + qsub],
+                           dslot[st:st + qsub], cents, scale, s)
+        if ci % 16 == 15:
+            _log(f"pass 3 (quantize+scatter): chunk {ci + 1}/{n_chunks}")
+    xc = dslot = None
+    clock("quantize_s")
+    _log("pass 3 done")
+    ids2 = torch.from_numpy(ids_flat.reshape(nb_pad, s).astype(np.int32)).to(
+        dev)
+    return IvfIndex(
+        centroids=cents,
+        cent_sq=(cents * cents).sum(1),
+        block_valid=(ids2 >= 0).any(1),
+        blocks_i8=codes.view(nb_pad, s, d),
+        block_scale=scale,
+        row_sq=rowsq.view(nb_pad, s),
+        block_ids=ids2,
     )
 
 
@@ -1233,3 +1458,68 @@ def ivf_search_rescored(
     with record_function("ivf.rescore"):
         return _rescore_exact(queries.to(torch.float32), corpus, ci, cd, k=k,
                               metric=metric)
+
+
+def _rescore_from_chunk(best: torch.Tensor, q: torch.Tensor, xc: torch.Tensor,
+                        cand: torch.Tensor, base: int, rows: int,
+                        metric: str) -> torch.Tensor:
+    """Exact-scores the candidates that lie in chunk [base, base + rows) and
+    writes them into the running ``best`` [B, kc], in place. q [B, d] f32,
+    xc [rows, d], cand [B, kc] int32 global row ids."""
+    local = cand.long() - base
+    inchunk = (cand >= 0) & (local >= 0) & (local < rows)
+    rowsv = xc[local.clamp(0, rows - 1)]                     # [B, kc, d]
+    dd = dist_ops.batched_candidate_scores(q, rowsv, metric)
+    return best.copy_(torch.where(inchunk, dd, best))
+
+
+def _rescored_merge(best: torch.Tensor, cand: torch.Tensor,
+                    k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The final top-k over exactly rescored candidates, with an O(kc^2)
+    duplicate mask (a row id repeated among the candidates ties with
+    itself and would fill the top-k twice)."""
+    same = (cand[:, None, :] == cand[:, :, None]) & (cand[:, None, :] >= 0)
+    first = torch.argmax(same.to(torch.uint8), dim=-1)       # first copy
+    kc = cand.shape[1]
+    dup = first != torch.arange(kc, device=cand.device)[None, :]
+    best = torch.where(dup, INF, best)
+    out_d, pos = topk_smallest(best, min(k, kc))
+    out_i = cand.gather(-1, pos)
+    return out_d, torch.where(torch.isfinite(out_d), out_i, -1)
+
+
+def ivf_search_rescored_streaming(
+    index: IvfIndex,
+    queries: torch.Tensor,
+    chunk_source: Callable[[int], torch.Tensor],
+    n_chunks: int,
+    chunk_rows: int,
+    k: int,
+    probe: int = 32,
+    metric: str = "l2",
+    coarse_factor: int = 4,
+    probe_chunk: int = 8,
+    sync_every: int = 8,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The >= 0.99 recall tier for corpora past device memory: IVF coarse
+    retrieval of coarse_factor * k candidates over the int8 blocks, then
+    their EXACT fp32 rescore, each chunk asked again of the deterministic
+    ``chunk_source`` (build_ivf_streaming's contract) and only candidate
+    rows gathered from it. No fp32 corpus is resident; a query batch costs
+    one pass over the chunk source. Row id i lies in chunk i // chunk_rows
+    at offset i % chunk_rows (build_ivf_streaming's identity ids).
+    ``sync_every`` is unused (the JAX package bounded its queued chunks
+    with it); kept for the signature."""
+    kc = min(coarse_factor * k, index.block_rows * min(probe, index.n_blocks))
+    _, ci = ivf_search_batch(
+        index, queries, k=kc, probe=probe, metric=metric,
+        probe_chunk=probe_chunk,
+    )
+    q = queries.to(torch.float32)
+    with record_function("ivf.rescore"):
+        best = torch.full((q.shape[0], kc), INF, dtype=torch.float32,
+                          device=q.device)
+        for c in range(n_chunks):
+            _rescore_from_chunk(best, q, chunk_source(c), ci, c * chunk_rows,
+                                chunk_rows, metric)
+        return _rescored_merge(best, ci, k)
