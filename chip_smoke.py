@@ -29,6 +29,12 @@ Phases (each failure exits non-zero; there is no CPU path):
               PyTorch call times the product alone at B = 256 and 1,024
               (torch._int_mm for K1 and K3, a bf16 matmul for K2) as the
               kernels' library yardstick; the port never calls it;
+3b. bench  - bench_torch.py --quick as a child process (its own process
+              group, killed whole at BENCH_TIMEOUT_S): it exits 0, its last
+              line parses within 1,500 characters and names this card and
+              its power limit, int8 recall@10 >= 0.99, and its flat1m
+              section launched K1b or K2 (its own counts, reset at the
+              section's start, from its details file);
 4. slice    - FT.CREATE (v VECTOR FLAT, cat TAG, price NUMERIC) + 1,000,000
               HSETs of all three fields (the bench's seeded SIFT-like recipe,
               seeded tags and prices) + FT.SEARCH KNN 10 from 16 threads,
@@ -228,6 +234,8 @@ N_QUERIES = 1024
 N_GT = 256
 K = 10
 RECALL_FLOOR = 0.99
+BENCH_TIMEOUT_S = 600  # bench_torch.py --quick, its kernel builds reused
+BENCH_LINE_MAX = 1500
 THREADS = 16
 KERNEL_B = 256
 KERNEL_N = 1_048_576
@@ -3814,6 +3822,72 @@ def ivf_streaming_phase(torch, dev, gpu, queries) -> dict:
     return out
 
 
+def bench_phase(torch, gpu: str) -> dict:
+    """bench_torch.py --quick (flat1m alone, 131,072 rows, int8 and
+    bfloat16) in a child process group: exit 0, the last line's length,
+    JSON and device, int8 recall and the K1b / K2 launches of its run."""
+    import signal
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    script = os.path.join(root, "bench_torch.py")
+    check(os.path.exists(script), "bench_torch.py is not beside chip_smoke.py")
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, script, "--quick", "--out", out], cwd=root,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            start_new_session=True)
+        try:
+            stdout, stderr = proc.communicate(timeout=BENCH_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGTERM)
+            try:
+                proc.communicate(timeout=20)
+            except subprocess.TimeoutExpired:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.communicate()
+            raise SmokeFailure(
+                f"bench_torch.py --quick ran past {BENCH_TIMEOUT_S} s")
+        wall = time.perf_counter() - t0
+        check(proc.returncode == 0,
+              f"bench_torch.py --quick exited {proc.returncode}: "
+              f"{stderr[-3000:]}")
+        lines = stdout.strip().splitlines()
+        check(bool(lines), "bench_torch.py --quick printed nothing")
+        last = lines[-1]
+        check(len(last) <= BENCH_LINE_MAX,
+              f"bench_torch.py's last line is {len(last)} characters")
+        try:
+            line = json.loads(last)
+            with open(os.path.join(out, "details.json")) as f:
+                details = json.load(f)
+        except (OSError, ValueError) as exc:
+            raise SmokeFailure(f"bench_torch.py --quick output: {exc}")
+    device = line.get("device", {})
+    check(device.get("platform") == "gpu"
+          and device.get("kind") == torch.cuda.get_device_name(0)
+          and device.get("power_limit") in gpu,
+          f"bench_torch.py names the device {device}, not {gpu}")
+    check("flat1m_int8" in details and "flat1m_bfloat16" in details,
+          f"bench_torch.py --quick: flat1m did not land "
+          f"({details.get('skip_flat1m')})")
+    r = details["flat1m_int8"]["recall"]
+    check(r >= RECALL_FLOOR, f"bench_torch.py --quick int8 recall@10 {r}")
+    launches = {}
+    for dtype in ("int8", "bfloat16"):
+        _merge_launches(launches, details[f"flat1m_{dtype}"]["launches"])
+    k1b_k2 = (launches.get("bucket_scan_i8_packed[pre_shift>0]", 0)
+              + launches.get("bucket_scan_bf16", 0))
+    check(k1b_k2 > 0, f"bench_torch.py --quick launched no K1b or K2: "
+          f"{launches}")
+    out = {"wall_s": wall, "exit": proc.returncode, "line_chars": len(last),
+           "value": line.get("value"), "int8_recall": r,
+           "bf16_recall": details["flat1m_bfloat16"]["recall"],
+           "launches": launches, "headlines": line.get("headlines")}
+    log("bench phase: " + json.dumps(out), gpu)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3853,6 +3927,12 @@ def main() -> int:
     t0 = time.perf_counter()
     records = kernel_phase(torch, bs, dev, gpu)
     log(f"kernel phase {time.perf_counter() - t0:.1f} s", gpu)
+
+    # bench_torch.py --quick in its own processes: its launches are its own
+    # and never reach this process's counts
+    t0 = time.perf_counter()
+    bench_phase(torch, gpu)
+    log(f"bench phase {time.perf_counter() - t0:.1f} s", gpu)
 
     t0 = time.perf_counter()
     data = {}

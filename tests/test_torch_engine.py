@@ -307,3 +307,34 @@ def test_port_runs_with_jax_blocked():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert "no-jax-ok" in proc.stdout
+
+
+def test_a_delete_during_content_resolution_leaves_the_count():
+    """A DEL that lands between the search and content resolution (injected
+    by wrapping ``resolve_content``): the JAX package replies the count of
+    its search snapshot beside the keys left (10 with 9); the port takes
+    the dropped row out of the count too (9 with 9)."""
+    from valkey_search_tpu.server import ft_search as jfts
+    from valkey_search_tpu_torch.server import ft_search as tfts
+
+    got = {}
+    for mod, engine in ((jfts, JaxEngine()), (tfts, Engine())):
+        engine.execute("FT.CREATE", "g", "ON", "HASH", "PREFIX", "1", "d:",
+                       "SCHEMA", "grp", "TAG")
+        for i in range(10):
+            engine.execute("HSET", f"d:{i}", "grp", "a")
+        real = mod.resolve_content
+
+        def torn(eng, schema, resp, *args, _real=real, **kwargs):
+            assert eng.execute("DEL", "d:3") == 1
+            return _real(eng, schema, resp, *args, **kwargs)
+
+        mod.resolve_content = torn
+        try:
+            got[mod] = engine.execute("FT.SEARCH", "g", "@grp:{a}",
+                                      "NOCONTENT")
+        finally:
+            mod.resolve_content = real
+    keys = sorted(f"d:{i}" for i in range(10) if i != 3)
+    assert got[jfts][0] == 10 and sorted(got[jfts][1:]) == keys
+    assert got[tfts][0] == 9 and sorted(got[tfts][1:]) == keys

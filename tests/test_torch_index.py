@@ -135,3 +135,68 @@ def test_store_from_reference_copies(rng):
     port.clear_row(0)
     assert st.present[0] and not port.present[0]
     assert port.capacity == st.capacity and port.device.type == "cpu"
+
+
+def _blob(idx, rng, mask):
+    v = np.array([1.0, 2.0, 3.0, 4.0], np.float32)
+    idx.add_record("a", v.tobytes())
+    return [idx.search(v, k=1)]
+
+
+def _remove_modify(idx, rng, mask):
+    a = rng.standard_normal(8).astype(np.float32)
+    b = rng.standard_normal(8).astype(np.float32)
+    idx.add_record("a", a)
+    idx.add_record("b", b)
+    idx.remove_record("a")
+    out = [idx.search(a, k=2)]
+    idx.modify_record("b", a)
+    return out + [idx.search(a, k=1)]
+
+
+def _cosine(idx, rng, mask):
+    v = rng.standard_normal(16).astype(np.float32)
+    idx.add_record("v", v * 5.0)
+    idx.add_record("w", rng.standard_normal(16).astype(np.float32))
+    return [idx.search(v, k=1)]
+
+
+def _many(idx, rng, mask):
+    corpus = rng.standard_normal((300, 32)).astype(np.float32)
+    for i, v in enumerate(corpus):
+        idx.add_record(f"doc:{i}", v)
+    qs = rng.standard_normal((5, 32)).astype(np.float32)
+    allowed = None
+    if mask:  # odd docs only
+        allowed = np.arange(idx.store.capacity) % 2 == 1
+        allowed = (jnp.asarray(allowed) if isinstance(idx, JaxFlat)
+                   else torch.from_numpy(allowed))
+    return [idx.search(q, k=10, filter_mask=allowed) for q in qs]
+
+
+@pytest.mark.parametrize("case,dim,metric,mask", [
+    (_blob, 4, "l2", False),            # test_flat_index.py's blob round trip
+    (_remove_modify, 8, "l2", False),   # ... remove and modify
+    (_cosine, 16, "cosine", False),     # ... cosine normalization
+    (_many, 32, "l2", False),
+    (_many, 32, "l2", True),
+    (_many, 32, "ip", True),
+], ids=["blob", "remove_modify", "cosine", "unfiltered", "masked_l2",
+        "masked_ip"])
+def test_single_query_search_matches_jax(case, dim, metric, mask):
+    """FlatVectorIndex.search, the single-query wrapper over search_batch:
+    the same calls on an index of each package give the same keys in the
+    same order, distances within rtol 1e-5."""
+    got = []
+    for idx in (JaxFlat(dim=dim, metric=metric),
+                FlatVectorIndex(dim=dim, metric=metric,
+                                device=torch.device("cpu"))):
+        got.append(case(idx, np.random.default_rng(3), mask))
+    want, port = got
+    assert [[k for k, _ in r] for r in port] == [[k for k, _ in r]
+                                                 for r in want]
+    for p, w in zip(port, want):
+        np.testing.assert_allclose([d for _, d in p], [d for _, d in w],
+                                   rtol=1e-5, atol=1e-6)
+    if mask:
+        assert all(int(k.split(":")[1]) % 2 == 1 for r in port for k, _ in r)

@@ -587,14 +587,22 @@ SCENARIOS = {
 }
 
 
+# the port's reply where it repairs the JAX package: a row that content
+# resolution drops (here p:1, whose fetched content no longer matches)
+# leaves the count too; the JAX package still counts it
+REPAIRED_IN_THE_PORT = {
+    stale_row_is_revalidated_against_content: ([1, "p:2"], [1, "p:2"], 2),
+}
+
+
 @pytest.mark.parametrize("scenario", list(SCENARIOS),
                          ids=[f.__name__ for f in SCENARIOS])
 def test_scenario_matches_the_reference(scenario):
     want = scenario(PACKAGES["jax"])
     got = scenario(PACKAGES["port"])
-    assert got == want
+    assert got == REPAIRED_IN_THE_PORT.get(scenario, want)
     if SCENARIOS[scenario] is not None:
-        assert got == SCENARIOS[scenario]
+        assert want == SCENARIOS[scenario]
 
 
 def test_weighted_priorities_mix_highs_and_lows():

@@ -178,8 +178,11 @@ def test_active_sweep_and_cron(both, clock):
 def test_search_and_aggregate_never_return_expired(both, clock):
     both.same("PEXPIRE", "k:2", "5")
     clock.advance(0.03)
-    # no access, no sweep: content resolution drops the key
-    reply = both.same("FT.SEARCH", "i", "@t:{a}")
+    # no access, no sweep: content resolution drops the key; the JAX
+    # package still counts it, the port takes it out of the count too
+    want = both.jax.execute("FT.SEARCH", "i", "@t:{a}")
+    reply = both.port.execute("FT.SEARCH", "i", "@t:{a}")
+    assert (want[0], reply[0]) == (2, 1) and reply[1:] == want[1:]
     assert "k:2" not in reply[1::2]
     both.same("HSET", "k:3", "t", "a", "n", "3")
     both.same("PEXPIRE", "k:3", "5")

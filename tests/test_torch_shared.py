@@ -1,9 +1,9 @@
 """The port stands alone: it imports nothing of the JAX package, and its own
 copies of the JAX package's host modules behave as the originals do.
 
-- An AST scan of every module of the port, ``chip_smoke.py`` and
-  ``tests/test_torch_cuda.py``: no import of ``jax`` or
-  ``valkey_search_tpu``.
+- An AST scan of every module of the port, ``bench_torch.py``,
+  ``chip_smoke.py`` and ``tests/test_torch_cuda.py``: no import of ``jax``
+  or ``valkey_search_tpu``.
 - The port's config registry has exactly the reference's options (names,
   kinds, defaults, bounds, choices, flags, aliases) and is a registry of
   its own: a change on one side leaves the other alone.
@@ -59,7 +59,8 @@ def _port_files():
     for root, _, names in os.walk(os.path.join(REPO, "valkey_search_tpu_torch")):
         out += [os.path.relpath(os.path.join(root, n), REPO)
                 for n in names if n.endswith(".py")]
-    return sorted(out) + ["chip_smoke.py", "tests/test_torch_cuda.py"]
+    return sorted(out) + ["bench_torch.py", "chip_smoke.py",
+                          "tests/test_torch_cuda.py"]
 
 
 def _imported_names(path):

@@ -18,7 +18,7 @@ query batch the way the JAX package does:
 
 from __future__ import annotations
 
-from typing import Mapping, Optional, Tuple
+from typing import List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -127,6 +127,17 @@ class FlatVectorIndex(VectorIndexBase):
             )
         STATS.incr("flat_searches", queries.shape[0])
         return d.cpu().numpy(), i.cpu().numpy()
+
+    def search(
+        self,
+        query: np.ndarray,
+        k: int,
+        filter_mask: Optional[torch.Tensor] = None,
+    ) -> List[Tuple[str, float]]:
+        """Single-query convenience wrapper -> [(key, distance)] ascending."""
+        d, i = self.search_batch(np.atleast_2d(query), k,
+                                 filter_mask=filter_mask)
+        return self.neighbors_to_keys(d[0], i[0])
 
 
 def _fit_mask(mask: torch.Tensor, cap: int) -> torch.Tensor:

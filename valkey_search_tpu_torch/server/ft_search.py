@@ -423,8 +423,13 @@ def shape_reply(
 
     if total_override is not None:
         total = total_override
+    elif resp.knn is None:
+        # rows that content resolution dropped (deleted or changed since
+        # the snapshot search) leave the count too; the JAX package counts
+        # them and replies a total above its keys
+        total = resp.total - (len(resp.neighbors) - len(rows))
     else:
-        total = resp.total if resp.knn is None else len(rows)
+        total = len(rows)
     window = rows[sp.limit_offset : sp.limit_offset + sp.limit_num]
 
     # record content caps (reference max-search-result-fields-count /
