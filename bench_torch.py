@@ -1301,26 +1301,6 @@ def child_main(name: str, opts: Opts) -> None:
 # ---------------------------------------------------------------------------
 
 
-def cpu_brute_force_topk(corpus, query, k: int):
-    """One exact query on one host core through ``native/``'s ``bf_topk``
-    (the reference's bruteforce.h equivalent): the CPU row of the result."""
-    import ctypes as ct
-
-    from valkey_search_tpu_torch import native_lib
-
-    lib = native_lib.load()
-    corpus = np.ascontiguousarray(corpus, np.float32)
-    query = np.ascontiguousarray(query, np.float32)
-    ids = np.full(k, -1, np.int32)
-    dists = np.full(k, np.inf, np.float32)
-    fp = ct.POINTER(ct.c_float)
-    lib.bf_topk(corpus.ctypes.data_as(fp), corpus.shape[0], corpus.shape[1],
-                query.ctypes.data_as(fp), k, 0,
-                ids.ctypes.data_as(ct.POINTER(ct.c_int32)),
-                dists.ctypes.data_as(fp))
-    return dists, ids
-
-
 def run_text_section(details: dict, n_docs: int) -> None:
     """bench.py's full-text micro-bench through the port's Engine (host
     only): ingest of 12-word Zipf documents, then term, AND, prefix,
@@ -1712,6 +1692,8 @@ def parent_main(opts: Opts, runner=run_section_child) -> int:
     state["paths"] = paths
     np.save(paths[0], corpus)
     np.save(paths[1], queries)
+    from valkey_search_tpu_torch.native_lib import cpu_brute_force_topk
+
     t0 = time.perf_counter()
     for i in range(sz.cpu_queries):
         cpu_brute_force_topk(corpus, queries[i], K)

@@ -400,6 +400,11 @@ STREAM_GT = 32
 STREAM_B = 512
 STREAM_PROBES = (64, 128, 256)
 STREAM_RESCORED_PROBES = (128, 256)
+# the build's seed spread on the card: two builds over the first
+# SEED_CHUNKS chunks (10.5M rows), at the default seed and the next
+SEED_CHUNKS = 16
+SEED_BUILDS = (0x1BF, 0x1C0)
+SEED_PROBE = 16
 IVF_COUNTERS = ("ivf_mirror_builds", "ivf_served_searches",
                 "ivf_stage2_grouped", "ivf_stage2_steps")
 
@@ -3776,12 +3781,9 @@ def ivf_streaming_phase(torch, dev, gpu, queries) -> dict:
     check(peak - before < corpus_bytes / 3,
           f"build peak {out['build_peak_gib']:.2f} GiB, not under a third "
           f"of the fp32 corpus's {out['corpus_gib']:.1f} GiB")
-    cand_v = np.concatenate([gt_parts[c][0] for c in range(N_STREAM_CHUNKS)],
-                            axis=1)
-    cand_i = np.concatenate([gt_parts[c][1] for c in range(N_STREAM_CHUNKS)],
-                            axis=1)
-    gt = np.take_along_axis(
-        cand_i, np.argsort(cand_v, axis=1, kind="stable")[:, :K], 1)
+    gt = merged_gt(gt_parts, N_STREAM_CHUNKS)
+    out["seed_spread"] = seed_spread(torch, ivf_ops, generate, gtq,
+                                     gt_parts, gpu)
 
     # what a streamed rescore pays beside its search: the 154 chunks
     # regenerated, alone (CUDA events)
@@ -3819,6 +3821,41 @@ def ivf_streaming_phase(torch, dev, gpu, queries) -> dict:
           f"{max(STREAM_RESCORED_PROBES)}")
     del index
     torch.cuda.empty_cache()
+    return out
+
+
+def merged_gt(gt_parts, n_chunks) -> np.ndarray:
+    """The exact top K over chunks 0..n_chunks-1 from each chunk's own."""
+    cand_v = np.concatenate([gt_parts[c][0] for c in range(n_chunks)], axis=1)
+    cand_i = np.concatenate([gt_parts[c][1] for c in range(n_chunks)], axis=1)
+    return np.take_along_axis(
+        cand_i, np.argsort(cand_v, axis=1, kind="stable")[:, :K], 1)
+
+
+def seed_spread(torch, ivf_ops, generate, gtq, gt_parts, gpu) -> dict:
+    """build_ivf_streaming over the first SEED_CHUNKS chunks at each seed of
+    SEED_BUILDS: build seconds and recall@K of the STREAM_GT queries at
+    probe SEED_PROBE (no rescore) against those chunks' exact top K."""
+    gt = merged_gt(gt_parts, SEED_CHUNKS)
+    out = {}
+    for seed in SEED_BUILDS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        index = ivf_ops.build_ivf_streaming(
+            generate, SEED_CHUNKS, block_rows=1024, block_align=1024,
+            seed=seed)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        _, ids = ivf_ops.ivf_search_batch(index, gtq, k=K, probe=SEED_PROBE,
+                                          probe_chunk=2)
+        ids = ids.cpu().numpy()
+        check(ids.shape == (len(gtq), K), f"seed {seed:#x}: ids {ids.shape}")
+        out[f"{seed:#x}"] = {"rows": SEED_CHUNKS * STREAM_CHUNK,
+                             "build_s": build_s, "n_blocks": index.n_blocks,
+                             f"recall_probe{SEED_PROBE}": recall(ids, gt)}
+        del index
+        torch.cuda.empty_cache()
+    log("ivf_streaming seed spread: " + json.dumps(out), gpu)
     return out
 
 

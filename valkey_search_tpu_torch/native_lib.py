@@ -1,9 +1,10 @@
 """ctypes binding to the native C++ layer (native/, built by native/build.py).
 
 The port's own copy of valkey_search_tpu/native_lib.py, cut to what the
-port uses: the loader ``load()``, ``HnswBuilder`` (the HNSW graph builder
-and its CPU search oracle), ``NativeLexer`` and ``NativeTextIndex``, with
-the same names and behaviour. The native sources under native/ are
+port uses: the loader ``load()``, ``cpu_brute_force_topk`` (one exact
+query on one host core), ``HnswBuilder`` (the HNSW graph builder and its CPU
+search oracle), ``NativeLexer`` and ``NativeTextIndex``, with the same names
+and behaviour. The native sources under native/ are
 repository-level and shared by both packages; each package binds them
 itself.
 """
@@ -110,6 +111,23 @@ def load() -> ct.CDLL:
         ]
         _lib = lib
         return lib
+
+
+def cpu_brute_force_topk(
+    corpus: np.ndarray, query: np.ndarray, k: int, metric: str = "l2"
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Single-query exact CPU scan (reference bruteforce.h equivalent);
+    the single-host CPU baseline for bench_torch.py. Returns (dists, ids)."""
+    lib = load()
+    corpus = np.ascontiguousarray(corpus, np.float32)
+    query = np.ascontiguousarray(query, np.float32)
+    ids = np.full(k, -1, np.int32)
+    dists = np.full(k, np.inf, np.float32)
+    lib.bf_topk(
+        _fptr(corpus), corpus.shape[0], corpus.shape[1], _fptr(query),
+        k, 0 if metric == "l2" else 1, _iptr(ids), _fptr(dists),
+    )
+    return dists, ids
 
 
 def _fptr(a: np.ndarray):

@@ -168,3 +168,6 @@ class SchemaManager:
             schema.backfill_cursor = 0
         STATS.incr("backfilled_records", len(chunk))
         return len(chunk)
+
+
+MANAGER = SchemaManager()
