@@ -1,0 +1,9 @@
+"""p95_ms: the 95th percentile of the latency, send to reply, of every
+request answered in the window."""
+
+import numpy as np
+
+
+def read(run):
+    lat = run.latencies_s()
+    return float(np.percentile(lat, 95) * 1e3) if lat.size else None
