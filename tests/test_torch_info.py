@@ -23,6 +23,7 @@ from valkey_search_tpu.runtime import threadmon as jthreadmon
 from valkey_search_tpu.runtime.debug import reset_all as jreset
 from valkey_search_tpu.runtime.info import format_si_bytes as jformat
 from valkey_search_tpu.server import acl as jacl
+from valkey_search_tpu_torch.runtime import config as tconfig
 from valkey_search_tpu_torch.runtime import info as tinfo
 from valkey_search_tpu_torch.runtime import log as tlog
 from valkey_search_tpu_torch.runtime import threadmon as tthreadmon
@@ -409,10 +410,27 @@ DEBUG_COMMANDS = [
 
 
 def _same_debug(b, argv):
+    if argv[:1] in (("CONFIG",), ("LIST_CONFIGS",)):
+        return _same_configs(b, argv)
     got = b.same("FT._DEBUG", *argv)
     if argv == ("HELP",):
         assert got[-4:-2] == ["FT._DEBUG PROFILE START <dir> | STOP",
                               "torch.profiler trace capture"]
+    return got
+
+
+def _same_configs(b, argv):
+    """The config listing: the reference's entries, then the port's own
+    options (``PORT_OPTIONS``), which only the port lists."""
+    want = b.jax.execute("FT._DEBUG", *argv)
+    got = b.port.execute("FT._DEBUG", *argv)
+    names_only = "NAMES_ONLY" in argv
+    step = 1 if names_only else 2
+    own = [n for n in range(0, len(got), step)
+           if got[n] in tconfig.PORT_OPTIONS]
+    assert [got[n] for n in own] == list(tconfig.PORT_OPTIONS)
+    kept = [x for n, x in enumerate(got) if n - n % step not in own]
+    assert kept == want
     return got
 
 

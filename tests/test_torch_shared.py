@@ -114,6 +114,34 @@ def test_copied_module_is_the_reference_code(rel):
 # the port's RESP server differs from the reference's in its forked BGSAVE
 # (a process that holds a CUDA context) and in its command line's --device
 _RESP_CHANGED = {"_engine_aux_locks", "_detach_after_fork", "bgsave_forked"}
+# and records a sampled command's spans in these functions: they are compared
+# with every statement that names the span recorder taken out, and the
+# recorder's import with them
+_RESP_SPANNED = {"handle", "_reply"}
+_SPAN_NAMES = {"CTX", "SPAN", "TRACE", "clock"}
+_RESP_ADDED_IMPORT = (
+    "ImportFrom(module='valkey_search_tpu_torch.runtime.metrics'")
+
+
+def _span_point(stmt) -> bool:
+    """A statement, its own span points already taken out, that names one
+    of ``_SPAN_NAMES`` or whose body held span points alone."""
+    if {n.id for n in ast.walk(stmt) if isinstance(n, ast.Name)} & _SPAN_NAMES:
+        return True
+    return hasattr(stmt, "body") and not stmt.body
+
+
+class _SpanPointsOut(ast.NodeTransformer):
+    """Take the span points out of every statement list, innermost first."""
+
+    def generic_visit(self, node):
+        node = super().generic_visit(node)
+        for field, value in ast.iter_fields(node):
+            if isinstance(value, list) and value and all(
+                    isinstance(v, ast.stmt) for v in value):
+                setattr(node, field,
+                        [v for v in value if not _span_point(v)])
+        return node
 
 
 def _statements_but(path, package, changed):
@@ -134,7 +162,14 @@ def _statements_but(path, package, changed):
 
 
 def _resp_statements(path, package):
-    return _statements_but(path, package, _RESP_CHANGED)
+    tree = ast.parse(_renamed_source(path, package), path)
+    spanned = [ast.dump(_SpanPointsOut().visit(n)) for n in ast.walk(tree)
+               if isinstance(n, ast.FunctionDef) and n.name in _RESP_SPANNED]
+    assert len(spanned) == len(_RESP_SPANNED)
+    return spanned + [
+        s for s in _statements_but(path, package,
+                                   _RESP_CHANGED | _RESP_SPANNED)
+        if not s.startswith(_RESP_ADDED_IMPORT)]
 
 
 def _renamed_source(path, package):
@@ -192,7 +227,8 @@ def _entry_shape(e):
 
 def test_config_registry_matches_the_reference():
     jent, tent = jconfig.REGISTRY._entries, tconfig.REGISTRY._entries
-    assert sorted(tent) == sorted(jent)
+    # the port's own options (search.trace-spans) are the only ones added
+    assert sorted(tent) == sorted([*jent, *tconfig.PORT_OPTIONS])
     for name in jent:
         assert _entry_shape(tent[name]) == _entry_shape(jent[name]), name
     assert tconfig._ALIASES == jconfig._ALIASES

@@ -14,6 +14,13 @@ query batch the way the JAX package does:
   top-k and the fp32 rescore;
 - ``approx`` with a bf16 mirror otherwise: ``flat_topk_two_stage``;
 - else the blocked exact scan ``flat_topk``.
+
+Each call for a traced request (runtime/metrics.py ``CTX.rid``) is one
+traced launch: it mints a launch id and records
+``flat.search_batch`` (its query rows and k), ``flat.prepare`` (the queries
+copied, normalised and uploaded, the snapshot and the options read) and
+``flat.sync`` (the host blocked on the device's results) into
+runtime/metrics.py's ``TRACE``; ``ops/`` records the launch's inner spans.
 """
 
 from __future__ import annotations
@@ -24,7 +31,13 @@ import numpy as np
 import torch
 
 from valkey_search_tpu_torch.runtime import config
-from valkey_search_tpu_torch.runtime.metrics import STATS
+from valkey_search_tpu_torch.runtime.metrics import (
+    CTX,
+    SPAN,
+    STATS,
+    TRACE,
+    clock,
+)
 from valkey_search_tpu_torch.indexes.vector_base import (
     VectorIndexBase,
     store_from_reference,
@@ -73,6 +86,35 @@ class FlatVectorIndex(VectorIndexBase):
         vector field); the mask is cut or padded with False to the store's
         capacity, since rows past it hold no vector and are never answers.
         (The JAX package passes such a mask on and fails to broadcast.)"""
+        # a traced request's launch: it mints the launch id
+        launch = TRACE.new_id() if CTX.rid else 0
+        t0 = clock() if launch else 0
+        CTX.launch = launch
+        try:
+            d, i = self._launch(queries, k, filter_mask, t0)
+            t_sync = clock() if launch else 0
+            out = d.cpu().numpy(), i.cpu().numpy()
+        finally:
+            CTX.launch = 0
+        STATS.incr("flat_searches", out[0].shape[0])
+        if launch:
+            t1 = clock()
+            rid = CTX.rid
+            TRACE.record(SPAN["flat.sync"], t_sync, t1, rid, launch)
+            TRACE.record(SPAN["flat.search_batch"], t0, t1, rid, launch,
+                         out[0].shape[0], k)
+            CTX.last_launch = launch
+        return out
+
+    def _launch(
+        self,
+        queries: np.ndarray,
+        k: int,
+        filter_mask: Optional[torch.Tensor],
+        t0: int,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``search_batch``'s work up to its results on the device; records
+        ``flat.prepare`` from ``t0`` when it is not 0."""
         # a copy: query blobs arrive as read-only buffers
         queries = np.array(np.atleast_2d(queries), np.float32, order="C")
         if queries.shape[1] != self.dim:
@@ -83,16 +125,19 @@ class FlatVectorIndex(VectorIndexBase):
             queries = queries / np.maximum(mags, 1e-30)
         snap = self.store.device_snapshot()
         mode = str(config.get("search.topk-mode"))
+        block_rows = int(config.get("search.flat-block-size"))
         q = torch.from_numpy(queries).to(self.store.device)
         corpus = snap["vectors"]
         if filter_mask is None:
             mirror = self.ivf_mirror()
             if mirror is not None:
+                if t0:
+                    TRACE.record(SPAN["flat.prepare"], t0, clock(), CTX.rid,
+                                 CTX.launch)
                 d, i = self._ivf_search(mirror, q, k, corpus,
                                         snap["invalid"])
-                STATS.incr("flat_searches", queries.shape[0])
                 STATS.incr("ivf_served_searches", queries.shape[0])
-                return d.cpu().numpy(), i.cpu().numpy()
+                return d, i
         else:
             filter_mask = _fit_mask(filter_mask, corpus.shape[0])
         common = dict(k=k, metric=self.metric, corpus_sq=snap["norms_sq"],
@@ -102,31 +147,28 @@ class FlatVectorIndex(VectorIndexBase):
             and ("vectors_lp" in snap or "vectors_i8" in snap)
             and topk_ops.use_fused_scan(corpus.shape[0], filter_mask, corpus)
         ):
-            d, i = topk_ops.flat_topk_fused(
+            span = int(config.get("search.scan-span")) or None
+            coarse = int(config.get("search.scan-coarse-factor")) or None
+            if t0:
+                TRACE.record(SPAN["flat.prepare"], t0, clock(), CTX.rid,
+                             CTX.launch)
+            return topk_ops.flat_topk_fused(
                 q, corpus, snap.get("vectors_lp"),
-                block_rows=max(int(config.get("search.flat-block-size")),
-                               corpus.shape[0]),
+                block_rows=max(block_rows, corpus.shape[0]),
                 corpus_i8=snap.get("vectors_i8"),
                 i8_scale=snap.get("i8_scale"),
-                span=int(config.get("search.scan-span")) or None,
-                coarse_factor=(
-                    int(config.get("search.scan-coarse-factor")) or None),
+                span=span, coarse_factor=coarse, **common,
+            )
+        if t0:
+            TRACE.record(SPAN["flat.prepare"], t0, clock(), CTX.rid,
+                         CTX.launch)
+        if mode == "approx" and "vectors_lp" in snap:
+            return topk_ops.flat_topk_two_stage(
+                q, corpus, snap["vectors_lp"], block_rows=block_rows,
                 **common,
             )
-        elif mode == "approx" and "vectors_lp" in snap:
-            d, i = topk_ops.flat_topk_two_stage(
-                q, corpus, snap["vectors_lp"],
-                block_rows=int(config.get("search.flat-block-size")),
-                **common,
-            )
-        else:
-            d, i = topk_ops.flat_topk(
-                q, corpus,
-                block_rows=int(config.get("search.flat-block-size")),
-                mode=mode, **common,
-            )
-        STATS.incr("flat_searches", queries.shape[0])
-        return d.cpu().numpy(), i.cpu().numpy()
+        return topk_ops.flat_topk(q, corpus, block_rows=block_rows,
+                                  mode=mode, **common)
 
     def search(
         self,

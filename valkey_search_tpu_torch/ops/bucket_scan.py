@@ -30,6 +30,11 @@ at the kernel level so that every TPU kernel has a counterpart.
 Rows at or past ``corpus.shape[0]`` (up to ``bias.shape[0]``) score as zero
 vectors, exactly like the JAX package's zero-padded corpus, so callers pad
 the bias, never the corpus.
+
+Inside a traced launch (runtime/metrics.py ``CTX.launch``), K1's and K2's
+wrappers record ``topk.scan`` into ``TRACE``: the host's time to check the
+arguments and enqueue the kernel through ctypes (on a CPU tensor, to run
+the plain version), on the clock the device trace is mapped onto.
 """
 
 from __future__ import annotations
@@ -39,6 +44,8 @@ import threading
 from typing import Dict, Optional, Tuple
 
 import torch
+
+from valkey_search_tpu_torch.runtime.metrics import CTX, SPAN, TRACE, clock
 
 INF = float("inf")
 INVALID_ID = -1
@@ -269,26 +276,32 @@ def bucket_min_scan_i8_packed(
     The CUDA kernel takes d % 16 == 0 up to ``k1_max_dim()`` and tiles the
     queries by ``k1_query_tile``.
     """
+    launch = CTX.launch
+    t0 = clock() if launch else 0
     _check_scan_args(queries, corpus, bias, torch.int8, torch.int32,
                      span * GROUP, align=16)
     if queries.device.type == "cpu":
-        return bucket_min_scan_i8_packed_plain(queries, corpus, bias, span)
-    b, d = queries.shape
-    n = bias.shape[0]
-    _, _, _, pre_shift, _ = i8_packed_layout(round_up(d, 128), span)
-    out = torch.empty((b, n // (BUCKET * span)), dtype=torch.int32,
-                      device=queries.device)
-    lib = _library("bucket_scan_i8_packed")
-    with torch.cuda.device(queries.device):
-        rc = lib.bucket_scan_i8_packed(
-            queries.data_ptr(), corpus.data_ptr(), bias.data_ptr(),
-            out.data_ptr(), b, d, corpus.shape[0], n, span, pre_shift,
-            chunk_bits(span), k1_query_tile(b, d),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    _raise_on(lib, rc, "bucket_scan_i8_packed")
-    _count_launch("bucket_scan_i8_packed[pre_shift=0]" if pre_shift == 0
-                  else "bucket_scan_i8_packed[pre_shift>0]")
+        out = bucket_min_scan_i8_packed_plain(queries, corpus, bias, span)
+    else:
+        b, d = queries.shape
+        n = bias.shape[0]
+        _, _, _, pre_shift, _ = i8_packed_layout(round_up(d, 128), span)
+        out = torch.empty((b, n // (BUCKET * span)), dtype=torch.int32,
+                          device=queries.device)
+        lib = _library("bucket_scan_i8_packed")
+        with torch.cuda.device(queries.device):
+            rc = lib.bucket_scan_i8_packed(
+                queries.data_ptr(), corpus.data_ptr(), bias.data_ptr(),
+                out.data_ptr(), b, d, corpus.shape[0], n, span, pre_shift,
+                chunk_bits(span), k1_query_tile(b, d),
+                torch.cuda.current_stream().cuda_stream,
+            )
+        _raise_on(lib, rc, "bucket_scan_i8_packed")
+        _count_launch("bucket_scan_i8_packed[pre_shift=0]" if pre_shift == 0
+                      else "bucket_scan_i8_packed[pre_shift>0]")
+    if t0:
+        TRACE.record(SPAN["topk.scan"], t0, clock(), CTX.rid, launch,
+                     queries.shape[0])
     return out
 
 
@@ -386,30 +399,36 @@ def bucket_min_scan(
     excluded; n % GROUP == 0, n_rows <= n) → (vals [B, n/128] f32,
     idx [B, n/128] int32 absolute rows). The CUDA kernel takes d % 8 == 0
     up to ``k2_max_dim()`` and tiles the queries by ``k2_query_tile``."""
+    launch = CTX.launch
+    t0 = clock() if launch else 0
     _check_scan_args(queries, corpus, bias, torch.bfloat16, torch.float32,
                      GROUP, align=8)
     if qsq.dtype != torch.float32 or qsq.shape != (queries.shape[0],) \
             or qsq.device != queries.device or not qsq.is_contiguous():
         raise ValueError("qsq must be a contiguous f32 [B] on the query device")
     if queries.device.type == "cpu":
-        return bucket_min_scan_plain(queries, qsq, corpus, bias, positive)
-    b, d = queries.shape
-    n = bias.shape[0]
-    bq = k2_query_tile(b, d)
-    vals = torch.empty((b, n // BUCKET), dtype=torch.float32,
-                       device=queries.device)
-    idx = torch.empty((b, n // BUCKET), dtype=torch.int32,
-                      device=queries.device)
-    lib = _library("bucket_scan_bf16")
-    with torch.cuda.device(queries.device):
-        rc = lib.bucket_scan_bf16(
-            queries.data_ptr(), qsq.data_ptr(), corpus.data_ptr(),
-            bias.data_ptr(), vals.data_ptr(), idx.data_ptr(), b, d,
-            corpus.shape[0], n, int(positive), bq,
-            torch.cuda.current_stream().cuda_stream,
-        )
-    _raise_on(lib, rc, "bucket_scan_bf16")
-    _count_launch("bucket_scan_bf16")
+        vals, idx = bucket_min_scan_plain(queries, qsq, corpus, bias, positive)
+    else:
+        b, d = queries.shape
+        n = bias.shape[0]
+        bq = k2_query_tile(b, d)
+        vals = torch.empty((b, n // BUCKET), dtype=torch.float32,
+                           device=queries.device)
+        idx = torch.empty((b, n // BUCKET), dtype=torch.int32,
+                          device=queries.device)
+        lib = _library("bucket_scan_bf16")
+        with torch.cuda.device(queries.device):
+            rc = lib.bucket_scan_bf16(
+                queries.data_ptr(), qsq.data_ptr(), corpus.data_ptr(),
+                bias.data_ptr(), vals.data_ptr(), idx.data_ptr(), b, d,
+                corpus.shape[0], n, int(positive), bq,
+                torch.cuda.current_stream().cuda_stream,
+            )
+        _raise_on(lib, rc, "bucket_scan_bf16")
+        _count_launch("bucket_scan_bf16")
+    if t0:
+        TRACE.record(SPAN["topk.scan"], t0, clock(), CTX.rid, launch,
+                     queries.shape[0])
     return vals, idx
 
 

@@ -11,6 +11,12 @@ workaround for its TPU backend) are exact top-k's in the port: the coarse
 survivor arrays are 128 to 1024 times smaller than the score matrix, so
 exact selection costs little, and the port then returns the same ids as the
 JAX package on its CPU path.
+
+Inside a traced launch (runtime/metrics.py ``CTX.launch``) the fused scan
+records ``topk.bias`` (the scan's inputs: the queries quantized or scaled,
+the bias and its padding), ``topk.plan`` (the survivor budget, which asks
+the device for its memory, and the block split), ``topk.select`` and
+``topk.rescore`` into ``TRACE``, and ops/bucket_scan.py ``topk.scan``.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ from typing import Optional, Tuple
 import torch
 
 from valkey_search_tpu_torch.runtime import config
+from valkey_search_tpu_torch.runtime.metrics import CTX, SPAN, TRACE, clock
 from valkey_search_tpu_torch.ops import bucket_scan as bs
 from valkey_search_tpu_torch.ops import distance as dist_ops
 
@@ -80,6 +87,8 @@ def _rescore_exact(
     metric: str = "l2",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact fp32 re-ranking of coarse candidates: gather, score, top-k."""
+    launch = CTX.launch
+    t0 = clock() if launch else 0
     cand = corpus[cand_ids.clamp_min(0).long()]  # [B, C, d]
     d = dist_ops.batched_candidate_scores(queries.to(torch.float32), cand,
                                           metric)
@@ -87,7 +96,10 @@ def _rescore_exact(
     out_d, pos = topk_smallest(d, min(k, d.shape[-1]))
     out_i = cand_ids.gather(-1, pos)
     out_i = torch.where(torch.isfinite(out_d), out_i, INVALID_ID)
-    return _pad_k(out_d, out_i.to(torch.int32), k)
+    out = _pad_k(out_d, out_i.to(torch.int32), k)
+    if t0:
+        TRACE.record(SPAN["topk.rescore"], t0, clock(), CTX.rid, launch)
+    return out
 
 
 def flat_topk_two_stage(
@@ -164,6 +176,7 @@ def flat_topk_fused(
     cap, d = corpus.shape
     b = queries.shape[0]
     dev = corpus.device
+    launch = CTX.launch
     if filter_mask is not None and filter_mask.dim() != 1:
         raise ValueError("flat_topk_fused needs a 1-D filter mask")
     if metric == "l2" and corpus_sq is None:
@@ -208,6 +221,7 @@ def flat_topk_fused(
     n = cap + (-cap % quantum)
     block_rows = bs.round_up(block_rows, quantum)
 
+    t_inputs = clock() if launch else 0
     if use_i8:
         if i8_scale is None:
             raise ValueError("corpus_i8 needs i8_scale")
@@ -234,6 +248,9 @@ def flat_topk_fused(
                             device=dev)
         bias = torch.nn.functional.pad(bias, (0, n - cap), value=INF)
         c_scan = corpus_lp
+    t_plan = clock() if launch else 0
+    if t_inputs:
+        TRACE.record(SPAN["topk.bias"], t_inputs, t_plan, CTX.rid, launch, n)
     if pad_d:
         q_scan = torch.nn.functional.pad(q_scan, (0, pad_d))
         c_scan = torch.nn.functional.pad(c_scan, (0, pad_d))
@@ -274,6 +291,7 @@ def flat_topk_fused(
         if use_i8:
             packed = bs.bucket_min_scan_i8_packed(q_scan, c_blk, bias_blk,
                                                   span)
+            t_select = clock() if launch else 0
             # keys are >= 0 and unique per column: the selected values ARE
             # the keys, decoded to (score, row)
             key, pos = topk_smallest(packed, min(kc, packed.shape[-1]))
@@ -284,13 +302,22 @@ def flat_topk_fused(
             bad = score > invalid_thresh
             bd = torch.where(bad, INF, score.to(torch.float32))
             bi = torch.where(bad, INVALID_ID, bi)
-            return bd, bi.to(torch.int32)
-        vals, idx = bs.bucket_min_scan(q_scan, qsq, c_blk, bias_blk, positive)
-        bd, pos = topk_smallest(vals, min(kc, vals.shape[-1]))
-        bi = idx.gather(-1, pos) + row0
-        bi = torch.where(torch.isinf(bd), INVALID_ID, bi)
-        return bd, bi.to(torch.int32)
+        else:
+            vals, idx = bs.bucket_min_scan(q_scan, qsq, c_blk, bias_blk,
+                                           positive)
+            t_select = clock() if launch else 0
+            bd, pos = topk_smallest(vals, min(kc, vals.shape[-1]))
+            bi = idx.gather(-1, pos) + row0
+            bi = torch.where(torch.isinf(bd), INVALID_ID, bi)
+        bi = bi.to(torch.int32)
+        if t_select:
+            TRACE.record(SPAN["topk.select"], t_select, clock(), CTX.rid,
+                         launch)
+        return bd, bi
 
+    if t_plan:
+        TRACE.record(SPAN["topk.plan"], t_plan, clock(), CTX.rid, launch,
+                     block_rows)
     if n <= block_rows:
         cd, ci = coarse_block(0)
     else:
@@ -299,7 +326,11 @@ def flat_topk_fused(
         ci = torch.full((b, kk), INVALID_ID, dtype=torch.int32, device=dev)
         for row0 in range(0, n, block_rows):
             bd, bi = coarse_block(row0)
+            t_merge = clock() if launch else 0
             cd, ci = merge_topk(cd, ci, bd, bi, bd.shape[-1])
+            if t_merge:
+                TRACE.record(SPAN["topk.select"], t_merge, clock(), CTX.rid,
+                             launch)
     ci = torch.where(ci >= cap, INVALID_ID, ci)  # padded corpus rows
     return _rescore_exact(queries, corpus, ci, cd, k=k, metric=metric)
 

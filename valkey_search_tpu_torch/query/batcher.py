@@ -28,9 +28,14 @@ dispatcher (``notify_all``): the JAX package wakes one, which under mixed
 (index, k, ef) signatures can be another signature's worker, so a query
 could wait out IDLE_S. A dispatcher that dies gives its count back, so a
 later submit starts a new one instead of waiting for ever. A waiter's
-cancelled future no longer turns the rest of its batch into errors. And a
+cancelled future no longer turns the rest of its batch into errors. A
 batch is launched at its own size: the JAX package pads it to a power of
-two so that XLA compiles few shapes, which the CUDA scans do not need.
+two so that XLA compiles few shapes, which the CUDA scans do not need. And
+a traced query's wait is recorded into runtime/metrics.py's ``TRACE``:
+``batcher.queue`` from submit to its launch starting, linked to the launch
+id, and ``batcher.return`` from its future settled to the submitter
+resuming; the launch's own spans carry its first traced query's request
+id.
 """
 
 from __future__ import annotations
@@ -44,15 +49,26 @@ from typing import Deque, Dict, Optional
 import numpy as np
 
 from valkey_search_tpu_torch.runtime import config
-from valkey_search_tpu_torch.runtime.metrics import STATS
+from valkey_search_tpu_torch.runtime.metrics import (
+    CTX,
+    SPAN,
+    STATS,
+    TRACE,
+    Handoff,
+    clock,
+)
 
 
 class _PendingQuery:
-    __slots__ = ("vector", "future")
+    __slots__ = ("vector", "future", "submitted")
 
     def __init__(self, vector: np.ndarray):
         self.vector = vector
-        self.future: Future = Future()
+        # carries the submitter's request id (0: not traced) to the
+        # dispatcher
+        rid = CTX.rid
+        self.future: Handoff = Handoff(SPAN["batcher.return"], rid)
+        self.submitted = clock() if rid else 0
 
 
 class VectorQueryBatcher:
@@ -144,28 +160,54 @@ class VectorQueryBatcher:
                 chunk.append(queue.popleft())
         if not chunk:
             return True
+        t_launch = 0
         try:
             # the batch goes out at its own size: the scans take any B
             queries = np.stack([p.vector for p in chunk])
+            # a launch is traced when one of its queries is, and its spans
+            # carry the first such query's request id
+            CTX.rid = rid = next(
+                (p.future.rid for p in chunk if p.future.rid), 0)
+            CTX.last_launch = 0
+            t_launch = clock() if rid else 0
             if ef is not None:
                 d, ids = index.search_batch(queries, k, ef=ef)
             else:
                 d, ids = index.search_batch(queries, k)
             STATS.incr("batched_queries", len(chunk))
+            STATS.incr("search_batch_launches")
             if len(chunk) > 1:
                 STATS.incr("query_batches_coalesced")
         except Exception as exc:  # propagate to every waiter
+            _queued(chunk, t_launch)
             for p in chunk:
                 _settle(p.future, exc=exc)
             return True
+        _queued(chunk, t_launch)
         for row, p in enumerate(chunk):
             _settle(p.future, (d[row], ids[row]))
         return True
 
 
+def _queued(chunk, t_launch: int) -> None:
+    """Record each query's wait from submit to its launch starting at
+    ``t_launch`` (0: the launch is not traced), linked to the launch that
+    served it."""
+    if not t_launch:
+        return
+    launch = CTX.last_launch
+    for p in chunk:
+        p.future.link = launch
+        if p.submitted:
+            TRACE.record(SPAN["batcher.queue"], p.submitted, t_launch,
+                         p.future.rid, launch)
+
+
 def _settle(future: Future, result=None, exc=None) -> None:
     """Resolve one waiter; a future its caller cancelled is skipped, so the
     rest of its batch still gets results."""
+    if future.rid:
+        future.settled = clock()
     try:
         if exc is not None:
             future.set_exception(exc)

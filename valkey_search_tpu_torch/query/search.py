@@ -16,14 +16,19 @@ on the host.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
 from valkey_search_tpu_torch.query import batcher, planner
 from valkey_search_tpu_torch.runtime import config
-from valkey_search_tpu_torch.runtime.metrics import STATS
+from valkey_search_tpu_torch.runtime.metrics import (
+    CTX,
+    SPAN,
+    STATS,
+    TRACE,
+    clock,
+)
 from valkey_search_tpu_torch.utils import cancel
 from valkey_search_tpu_torch.indexes.flat import FlatVectorIndex
 from valkey_search_tpu_torch.indexes.hnsw import HnswVectorIndex
@@ -55,6 +60,9 @@ class SearchParameters:
     # columnar consumers (FT.AGGREGATE's index-columnar GROUPBY) take the
     # doc-id ndarray instead of materialized Neighbor rows
     docs_only: bool = False
+    # set once the query is parsed: it has a KNN clause (INFO's vector and
+    # non-vector latencies)
+    vector: bool = False
 
 
 class Neighbor:
@@ -88,14 +96,18 @@ class SearchResponse:
 
 def execute_search(schema, sp: SearchParameters, token=None) -> SearchResponse:
     """Run one search against a schema's published snapshots."""
-    t0 = time.perf_counter()
     # epoch BEFORE any index read: a mutation landing mid-query must fail
     # the content-resolution fast path
     epoch0 = schema.mutation_epoch
     if token is None:
         token = cancel.from_timeout_ms(sp.timeout_ms)
     token.check()
+    rid = CTX.rid
+    t0 = clock() if rid else 0
     pred, knn = qparser.parse_query(sp.query, sp.params)
+    if rid:
+        TRACE.record(SPAN["query.parse"], t0, clock(), rid)
+    sp.vector = knn is not None
     ctx = P.EvalContext(schema)
     if knn is not None:
         resp = _search_vector(schema, ctx, pred, knn, sp)
@@ -104,9 +116,6 @@ def execute_search(schema, sp: SearchParameters, token=None) -> SearchResponse:
     resp.predicate = pred
     resp.knn = knn
     resp.epoch = epoch0
-    STATS.sampler("query_execution", 1).observe_usec(
-        (time.perf_counter() - t0) * 1e6
-    )
     return resp
 
 
@@ -131,8 +140,13 @@ def _search_vector(schema, ctx, pred, knn, sp) -> SearchResponse:
         d, docs = d_row[None], doc_row[None]
         STATS.incr("vector_searches_unfiltered")
     else:
+        rid = CTX.rid
+        t0 = clock() if rid else 0
         qualified = pred.estimate(ctx)
         mask = pred.device_mask(ctx)
+        if rid:
+            TRACE.record(SPAN["query.mask"], t0, clock(), rid,
+                         arg=int(qualified))
         # a FLAT index always pre-filters (planner.cc:26-28): its scan scores
         # every row anyway, with the mask folded into the bias
         if planner.use_prefiltering(qualified, index):

@@ -11,7 +11,8 @@ src/valkey_search_options.cc.
 
 The port's own copy of valkey_search_tpu/runtime/config.py: the same
 names, defaults and behaviour, with its imports pointing into
-valkey_search_tpu_torch.
+valkey_search_tpu_torch, and one option of its own, ``search.trace-spans``
+(``PORT_OPTIONS``).
 """
 
 from __future__ import annotations
@@ -376,6 +377,11 @@ _bool("search.log-user-data", False)  # reference RedactIfNeeded gate
 # reference CONSUMES these events from valkey-server to drive indexing;
 # this standalone stack also EMITS them to SUBSCRIBE/PSUBSCRIBE clients.)
 REGISTRY.register(Entry("search.notify-keyspace-events", "", "", "string"))
+# the port's own option: record the spans of sampled commands into
+# runtime/metrics.py's ring (TRACE); off, a command reads this entry and
+# records nothing
+TRACE_SPANS = _bool("search.trace-spans", True)
+PORT_OPTIONS = ("search.trace-spans",)
 
 
 def get(name: str) -> Any:

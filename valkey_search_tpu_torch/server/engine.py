@@ -40,7 +40,14 @@ import time
 from typing import Dict, List, Optional, Sequence, Union
 
 from valkey_search_tpu_torch.runtime import config
-from valkey_search_tpu_torch.runtime.metrics import STATS
+from valkey_search_tpu_torch.runtime.metrics import (
+    CTX,
+    SPAN,
+    STATS,
+    TRACE,
+    Handoff,
+    clock,
+)
 from valkey_search_tpu_torch.schema.index_schema import IndexSchema
 from valkey_search_tpu_torch.schema.schema_manager import SchemaError, SchemaManager
 from valkey_search_tpu_torch.server import ft_create as ft_create_mod
@@ -717,6 +724,8 @@ class Engine:
         return self.manager.list_names()
 
     def ft_search(self, *args: Value, user: str = "default") -> list:
+        t0 = clock()
+        rid = CTX.rid  # the RESP command's, when it is traced
         # top-level request counters (reference Metrics query_successful_
         # requests_cnt / query_failed_requests_cnt split by hybrid/vector,
         # valkey_search.cc:866-890)
@@ -725,13 +734,25 @@ class Engine:
             # category gate here too: the RESP async path calls this
             # method directly, bypassing execute()
             self._acl_check_command(user, "FT.SEARCH")
+            tp = clock() if rid else 0
             sp = ft_search_mod.parse_ft_search_args(list(args))
+            if rid:
+                TRACE.record(SPAN["query.parse"], tp, clock(), rid)
             schema = self.manager.get(sp.index_name)
             self._acl_check(user, schema.prefixes)
             reply = ft_search_mod.run_ft_search(self, schema, sp)
         except Exception:
             STATS.incr("query_errors")
             raise
+        finally:
+            t1 = clock()
+            if rid:
+                TRACE.record(SPAN["engine.ft_search"], t0, t1, rid)
+        # INFO's search_vector_ / search_nonvector_latency_usec, from the
+        # span's clock readings, taken traced or not
+        STATS.sampler("vector_search_usec" if sp.vector
+                      else "nonvector_search_usec").observe_usec(
+                          (t1 - t0) / 1e3)
         return reply
 
     def ft_search_async(self, *args: Value, user: str = "default"):
@@ -750,7 +771,33 @@ class Engine:
                             2, int(config.get("search.reader-threads")) * 4),
                         thread_name_prefix="reader",
                     )
-        return self._reader_pool.submit(self.ft_search, *args, user=user)
+        rid = CTX.rid
+        if not rid:  # not traced
+            return self._reader_pool.submit(self.ft_search, *args, user=user)
+        # a traced request's future carries its id to the reader thread,
+        # and the handoff back to the caller's span
+        fut = Handoff(SPAN["reader.return"], rid)
+        submitted = clock()
+
+        def serve():
+            if not fut.set_running_or_notify_cancel():
+                return
+            CTX.rid = rid
+            TRACE.record(SPAN["reader.queue"], submitted, clock(), rid)
+            try:
+                reply = self.ft_search(*args, user=user)
+            except BaseException as exc:  # the waiter raises it, as it
+                # would from the executor's own future
+                fut.settled = clock()
+                fut.set_exception(exc)
+                return
+            finally:
+                CTX.rid = 0
+            fut.settled = clock()
+            fut.set_result(reply)
+
+        self._reader_pool.submit(serve)
+        return fut
 
     def ft_aggregate(self, *args: Value, user: str = "default") -> list:
         from valkey_search_tpu_torch.server import ft_aggregate as agg

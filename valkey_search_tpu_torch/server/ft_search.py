@@ -13,7 +13,13 @@ from typing import Dict, List, Optional, Tuple, Union
 
 from valkey_search_tpu_torch.query import predicate as P
 from valkey_search_tpu_torch.runtime import config
-from valkey_search_tpu_torch.runtime.metrics import STATS
+from valkey_search_tpu_torch.runtime.metrics import (
+    CTX,
+    SPAN,
+    STATS,
+    TRACE,
+    clock,
+)
 from valkey_search_tpu_torch.query.search import (
     Neighbor,
     SearchParameters,
@@ -358,6 +364,8 @@ def run_ft_search(engine, schema, sp: SearchParameters) -> list:
     from valkey_search_tpu_torch.server import externalizer
 
     resp = execute_search(schema, sp)
+    rid = CTX.rid
+    t0 = clock() if rid else 0
     _trim_results(resp, sp)
     resp = _block_on_text_contention(engine, schema, sp, resp)
     if externalizer.index_serves_return_fields(schema, sp, resp):
@@ -376,7 +384,10 @@ def run_ft_search(engine, schema, sp: SearchParameters) -> list:
             no_content=sp.no_content and sp.sortby is None,
         )
         augment_json_sortby(schema, sp, rows)
-    return shape_reply(rows, resp, sp)
+    reply = shape_reply(rows, resp, sp)
+    if rid:
+        TRACE.record(SPAN["reply.shape"], t0, clock(), rid)
+    return reply
 
 
 def augment_json_sortby(schema, sp: SearchParameters, rows) -> None:

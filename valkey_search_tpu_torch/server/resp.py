@@ -26,7 +26,9 @@ SAVE, BGSAVE and SHUTDOWN; with ``search.journal-path`` set, the op journal
 (persistence/journal.py) and boot recovery.
 
 The module is the JAX package's statement for statement, apart from the
-forked BGSAVE, which a process that holds a CUDA context changes
+spans of a sampled command (``_Handler.handle`` and ``_reply`` record
+``resp.command`` and ``resp.write`` into runtime/metrics.py's ``TRACE``)
+and the forked BGSAVE, which a process that holds a CUDA context changes
 (``bgsave_forked``, ``_engine_aux_locks``, ``_detach_after_fork``):
 
 - the fork barrier also holds each engine's schema manager lock and each
@@ -54,6 +56,7 @@ from typing import Any, Dict, List, Optional
 
 from valkey_search_tpu_torch.runtime import config
 from valkey_search_tpu_torch.runtime.log import log
+from valkey_search_tpu_torch.runtime.metrics import CTX, SPAN, TRACE, clock
 from valkey_search_tpu_torch.server.engine import (
     CommandError,
     Engine,
@@ -313,18 +316,29 @@ class _Handler(socketserver.StreamRequestHandler):
             if not argv:
                 self._reply(RespError("empty command"))
                 continue
+            # a sampled command's span, and the request id that every span
+            # of its work carries (the reader pool and the batcher hand it
+            # on); 0: the command is not traced
+            CTX.rid = rid = TRACE.sample()
+            t0 = clock() if rid else 0
             try:
                 quit_after = self._dispatch(srv, argv)
             except BrokenPipeError:
                 return
+            if rid:
+                TRACE.record(SPAN["resp.command"], t0, clock(), rid)
             if quit_after:
                 return
 
     # -- reply helpers ------------------------------------------------------
     def _reply(self, value: Any) -> None:
+        rid = CTX.rid
+        t0 = clock() if rid else 0
         with self._wlock:
             self.wfile.write(encode(value, self.proto))
             self.wfile.flush()
+        if rid:
+            TRACE.record(SPAN["resp.write"], t0, clock(), rid)
 
     # -- dispatch -----------------------------------------------------------
     def _dispatch(self, srv: "RespServer", argv: List[bytes]) -> bool:
