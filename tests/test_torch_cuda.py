@@ -18,6 +18,7 @@ from valkey_search_tpu_torch.ops import ivf
 from valkey_search_tpu_torch.ops import topk
 from valkey_search_tpu_torch.runtime import config
 from valkey_search_tpu_torch.runtime.device import set_device
+from valkey_search_tpu_torch.runtime.metrics import STATS
 
 GROUP = bs.GROUP
 
@@ -160,6 +161,173 @@ def test_fused_topk_on_card_matches_cpu(dev, int8):
         assert same >= 0.99
     torch.testing.assert_close(gd.cpu(), cd, rtol=1e-5, atol=1e-5)
     assert allowed[gi.cpu().long()].all()
+
+
+# -- the fused launch replayed as a CUDA graph (ops/fused_graphs.py) --------
+
+_GRAPH_INDEXES = {}
+
+
+def _graph_index(dev, dtype, metric, n, d):
+    """A FLAT index of ``n`` Gaussian rows published under ``dtype``, and
+    200 queries; built once per (dtype, metric, n, d) in the process."""
+    key = (dtype, metric, n, d)
+    if key not in _GRAPH_INDEXES:
+        rng = np.random.default_rng(n + d)
+        vecs = rng.standard_normal((n, d)).astype(np.float32)
+        index = FlatVectorIndex(dim=d, metric=metric, device=dev)
+        index.bulk_load([f"k{i}" for i in range(n)], vecs)
+        queries = rng.standard_normal((200, d)).astype(np.float32)
+        _GRAPH_INDEXES[key] = index, queries
+    return _GRAPH_INDEXES[key]
+
+
+def _graph_counts():
+    return (STATS.get("flat_graph_captures"),
+            STATS.get("flat_graph_replays"))
+
+
+def _eager(index, q, k):
+    """``flat_topk_fused`` called eagerly on the index's snapshot, as
+    ``search_batch`` calls it: host arrays."""
+    if index.metric == "cosine":
+        q = q / np.maximum(np.linalg.norm(q, axis=1, keepdims=True), 1e-30)
+    snap = index.store.device_snapshot()
+    corpus = snap["vectors"]
+    d, i = topk.flat_topk_fused(
+        torch.from_numpy(q).to(corpus.device), corpus,
+        snap.get("vectors_lp"), k=k, metric=index.metric,
+        corpus_sq=snap["norms_sq"], invalid=snap["invalid"],
+        block_rows=max(int(config.get("search.flat-block-size")),
+                       corpus.shape[0]),
+        corpus_i8=snap.get("vectors_i8"), i8_scale=snap.get("i8_scale"))
+    return d.cpu().numpy(), i.cpu().numpy()
+
+
+def _same_bits(got, want):
+    (gd, gi), (wd, wi) = got, want
+    return (np.array_equal(gi, wi)
+            and np.array_equal(gd.view(np.int32), wd.view(np.int32)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [10, 100])
+@pytest.mark.parametrize("b", [1, 7, 128])
+@pytest.mark.parametrize("metric", ["l2", "cosine"])
+@pytest.mark.parametrize("dtype,n,d,kernel", [
+    ("int8", 1_048_576, 128, "bucket_scan_i8_packed[pre_shift>0]"),  # K1b
+    ("bfloat16", 262_144, 768, "bucket_scan_bf16"),                  # K2
+])
+def test_graph_replay_is_the_eager_launch_bit_for_bit(dev, dtype, n, d,
+                                                      kernel, metric, b, k):
+    with _Options(corpus_dtype=dtype, topk_mode="approx",
+                  scan_kernel="auto"):
+        index, queries = _graph_index(dev, dtype, metric, n, d)
+        q = queries[:b]
+        want = _eager(index, q, k)
+        c0, r0 = _graph_counts()
+        first = index.search_batch(q, k)   # captured: the warm-up answers
+        assert _graph_counts() == (c0 + 1, r0)
+        launches = bs.launch_counts()[kernel]
+        got = index.search_batch(q, k)     # replayed
+        assert _graph_counts() == (c0 + 1, r0 + 1)
+        assert bs.launch_counts()[kernel] == launches + 1
+        assert _same_bits(first, want) and _same_bits(got, want)
+        assert got[1].shape == (b, k) and (got[1] >= 0).all()
+
+
+@pytest.mark.cuda
+def test_a_write_recaptures_the_graph(dev):
+    """HSET and DEL that change the top 10 publish a new snapshot: the next
+    search captures again and answers the new rows as the eager launch."""
+    with _Options(corpus_dtype="int8", topk_mode="approx",
+                  scan_kernel="auto"):
+        index, queries = _graph_index(dev, "int8", "l2", 140_000, 64)
+        q = queries[:1]
+        index.search_batch(q, 10)
+        before = index.search_batch(q, 10)
+        old = [key for key, _ in index.neighbors_to_keys(before[0][0],
+                                                         before[1][0])]
+        for key in old[:3]:
+            index.remove_record(key)            # DEL of the best three
+        index.add_record("new", q[0] * 1.001)   # HSET: the new best
+        c0, r0 = _graph_counts()
+        got = index.search_batch(q, 10)
+        assert _graph_counts() == (c0 + 1, r0)
+        assert _same_bits(got, _eager(index, q, 10))
+        keys = [key for key, _ in index.neighbors_to_keys(got[0][0],
+                                                          got[1][0])]
+        assert keys[0] == "new" and not set(old[:3]) & set(keys)
+        again = index.search_batch(q, 10)
+        assert _graph_counts() == (c0 + 1, r0 + 1)
+        assert _same_bits(again, got)
+
+
+@pytest.mark.cuda
+def test_filtered_wide_and_xla_launches_stay_eager(dev):
+    with _Options(corpus_dtype="int8", topk_mode="approx",
+                  scan_kernel="auto"):
+        index, queries = _graph_index(dev, "int8", "l2", 140_000, 64)
+        index.search_batch(queries[:1], 10)
+        counts = _graph_counts()
+        everything = torch.ones(index.store.capacity, dtype=torch.bool,
+                                device=dev)
+        got = index.search_batch(queries[:1], 10, filter_mask=everything)
+        assert _same_bits(got, index.search_batch(queries[:1], 10))
+        counts = (counts[0], counts[1] + 1)   # the unfiltered one replayed
+        assert _graph_counts() == counts
+        wide = index.search_batch(queries[:129], 10)
+        assert _same_bits(wide, _eager(index, queries[:129], 10))
+        assert _graph_counts() == counts
+        with _Options(scan_kernel="xla"):
+            index.search_batch(queries[:1], 10)
+        assert _graph_counts() == counts
+
+
+@pytest.mark.cuda
+def test_concurrent_searches_get_their_own_answers(dev):
+    """Three threads on one index, two of them on one graph (B = 1) and one
+    on another (B = 7), with the interpreter switching threads every
+    microsecond: every answer is its own query's."""
+    import sys
+    import threading
+
+    with _Options(corpus_dtype="int8", topk_mode="approx",
+                  scan_kernel="auto"):
+        index, queries = _graph_index(dev, "int8", "l2", 140_000, 64)
+        work = [queries[10:11], queries[11:12], queries[20:27]]
+        wants = [_eager(index, q, 10) for q in work]
+        for q in work:
+            index.search_batch(q, 10)   # captured outside the race
+        c0, r0 = _graph_counts()
+        errors = []
+
+        def run(q, want):
+            try:
+                for _ in range(200):
+                    if not _same_bits(index.search_batch(q, 10), want):
+                        errors.append("a wrong answer")
+            except Exception as exc:  # noqa: BLE001 - reported below
+                errors.append(repr(exc))
+
+        threads = [threading.Thread(target=run, args=(q, w))
+                   for q, w in zip(work, wants)]
+        old = sys.getswitchinterval()
+        sys.setswitchinterval(1e-6)
+        try:
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+        finally:
+            sys.setswitchinterval(old)
+        assert not any(t.is_alive() for t in threads)
+        assert errors == []
+        assert _graph_counts() == (c0, r0 + 600)
+    from valkey_search_tpu_torch.server.engine import Engine
+
+    names = Engine().execute("FT._DEBUG", "METRICS", "NAMES_ONLY")
+    assert {"flat_graph_captures", "flat_graph_replays"} <= set(names)
 
 
 @pytest.mark.cuda

@@ -211,3 +211,197 @@ def test_distance_ops_match_jax(rng, metric):
         tdist.batched_candidate_scores(_t(q), _t(cands), metric).numpy(),
         np.asarray(jdist.batched_candidate_scores(q, cands, metric)),
         rtol=1e-5, atol=1e-5)
+
+
+# -- the CUDA graph of the fused launch (ops/fused_graphs.py), on the CPU ----
+# What decides a graph, its key, the cache's snapshot rule and what the CPU
+# path leaves untouched; the graphs themselves run in tests/test_torch_cuda.py.
+
+from valkey_search_tpu_torch.indexes.flat import FlatVectorIndex
+from valkey_search_tpu_torch.ops import bucket_scan as tbs
+from valkey_search_tpu_torch.ops import fused_graphs
+from valkey_search_tpu_torch.runtime.metrics import STATS
+
+_CUDA = torch.device("cuda", 0)
+_CPU = torch.device("cpu")
+
+
+@pytest.mark.parametrize("b,device,filtered,takes", [
+    (1, _CUDA, False, True),
+    (7, _CUDA, False, True),
+    (128, _CUDA, False, True),
+    (129, _CUDA, False, False),   # past K1's and K2's largest query tile
+    (0, _CUDA, False, False),
+    (1, _CUDA, True, False),      # a filtered launch stays eager
+    (1, _CPU, False, False),      # the plain versions on the CPU
+])
+def test_which_fused_launches_take_a_graph(b, device, filtered, takes):
+    assert fused_graphs.GRAPH_MAX_B == 128
+    assert fused_graphs.takes_graph(b, device, filtered) is takes
+
+
+def test_the_graph_key_holds_all_that_shapes_the_launch():
+    cap, d = 1_048_576, 8
+    corpus = torch.empty((cap, d))
+    lp = torch.empty((cap, d), dtype=torch.bfloat16)
+    i8 = torch.empty((cap, d), dtype=torch.int8)
+    plan = ttopk.fused_plan(1, corpus, None, i8, cap)
+    assert plan == ttopk.FusedPlan(True, 8, 4, cap, cap)
+    key = fused_graphs.graph_key(1, 10, "l2", plan)
+    assert key == fused_graphs.graph_key(
+        1, 10, "l2", ttopk.fused_plan(1, corpus, None, i8, cap))
+    others = [
+        fused_graphs.graph_key(2, 10, "l2", plan),
+        fused_graphs.graph_key(1, 100, "l2", plan),
+        fused_graphs.graph_key(1, 10, "cosine", plan),
+        fused_graphs.graph_key(1, 10, "l2", ttopk.fused_plan(
+            1, corpus, lp, None, cap)),                  # K2's mirror
+        fused_graphs.graph_key(1, 10, "l2", ttopk.fused_plan(
+            1, corpus, None, i8, cap, span=4)),          # search.scan-span
+        fused_graphs.graph_key(1, 10, "l2", ttopk.fused_plan(
+            1, corpus, None, i8, cap, coarse_factor=6)),  # coarse factor
+        fused_graphs.graph_key(1, 10, "l2", ttopk.fused_plan(
+            1, corpus, None, i8, cap // 4)),             # the block split
+    ]
+    assert len({key, *others}) == len(others) + 1
+
+
+def test_the_plan_reads_the_device_memory_once(monkeypatch):
+    calls = []
+
+    def mem_get_info(device):
+        calls.append(device)
+        return 1 << 30, 80 << 30
+
+    monkeypatch.setattr(torch.cuda, "mem_get_info", mem_get_info)
+    monkeypatch.setattr(ttopk, "_TOTAL_MEMORY", {})
+    dev = torch.device("cuda", 3)
+    assert ttopk._memory_limit(dev) == 80 << 30
+    assert ttopk._memory_limit(dev) == 80 << 30
+    assert calls == [dev]
+    assert ttopk._memory_limit(_CPU) == ttopk._DEFAULT_MEMORY_LIMIT
+
+
+@pytest.mark.parametrize("int8", [True, False])
+def test_a_given_plan_is_the_plan_the_launch_makes(rng, int8):
+    q, c = _corpus(rng, 3, 3 * ps.GROUP + 70, 16)
+    corpus = _t(c)
+    kw = dict(k=10, corpus_sq=(corpus * corpus).sum(1), block_rows=ps.GROUP)
+    if int8:
+        scale = torch.clamp_min(corpus.abs().max() / 127.0, 1e-30)
+        kw.update(corpus_i8=torch.clamp(torch.round(corpus / scale), -127,
+                                        127).to(torch.int8), i8_scale=scale)
+        lp = None
+    else:
+        lp = corpus.to(torch.bfloat16)
+    plan = ttopk.fused_plan(3, corpus, lp, kw.get("corpus_i8"), ps.GROUP)
+    assert plan.block_rows == ps.GROUP and plan.n == 4 * ps.GROUP
+    d0, i0 = ttopk.flat_topk_fused(_t(q), corpus, lp, **kw)
+    kw.pop("block_rows")
+    d1, i1 = ttopk.flat_topk_fused(_t(q), corpus, lp, plan=plan, **kw)
+    assert torch.equal(i0, i1)
+    assert torch.equal(d0.view(torch.int32), d1.view(torch.int32))
+
+
+class _Store:
+    """A store that takes weak references, as HostVectorStore does."""
+
+
+def test_the_graphs_belong_to_one_snapshot():
+    graphs = fused_graphs.FusedGraphs(size=2)
+    store, other = _Store(), _Store()
+    assert graphs._lookup(store, 5, "a") == (True, None)
+    graphs._keep(store, 5, "a", "graph a")
+    graphs._keep(store, 5, "b", "graph b")
+    assert graphs._lookup(store, 5, "a") == (True, "graph a")
+    graphs._keep(store, 5, "c", "graph c")   # over the bound: b, the
+    assert len(graphs) == 2                  # least recently replayed, goes
+    assert graphs._lookup(store, 5, "b") == (True, None)
+    # a launch that holds an older snapshot runs eagerly, and keeps nothing
+    assert graphs._lookup(store, 4, "a") == (False, None)
+    graphs._keep(store, 4, "d", "graph d")
+    assert len(graphs) == 2
+    # a newer snapshot drops every graph of the old one
+    assert graphs._lookup(store, 6, "a") == (True, None)
+    assert len(graphs) == 0
+    graphs._keep(store, 5, "a", "graph a")   # captured on the old one
+    assert len(graphs) == 0
+    graphs._keep(store, 6, "a", "graph a")
+    # another store (an index's store replaced) at any epoch: dropped too
+    assert graphs._lookup(other, 1, "a") == (True, None)
+    assert len(graphs) == 0
+
+
+@pytest.mark.parametrize("filtered", [False, True])
+def test_a_cpu_corpus_captures_nothing(rng, scan_kernel, filtered):
+    """The fused launch on a CPU corpus (its plain versions) runs eagerly:
+    no graph, and both counters stay where they were."""
+    set_both("search.scan-kernel", "pallas")
+    n, d = 131_072, 8
+    c = rng.standard_normal((n, d)).astype(np.float32)
+    index = FlatVectorIndex(dim=d, device="cpu")
+    index.bulk_load([f"k{i}" for i in range(n)], c)
+    with saved_options("search.corpus-dtype", "search.topk-mode"):
+        set_both("search.corpus-dtype", "int8")
+        set_both("search.topk-mode", "approx")
+        before = {n: STATS.get(n) for n in ("flat_graph_captures",
+                                            "flat_graph_replays")}
+        launches = tbs.launch_counts()
+        mask = torch.ones(n, dtype=torch.bool) if filtered else None
+        for _ in range(2):
+            _, ids = index.search_batch(c[:1], 10, filter_mask=mask)
+            assert ids[0, 0] == 0
+    assert len(index._graphs) == 0
+    assert {n: STATS.get(n) for n in before} == before
+    assert tbs.launch_counts() == launches  # the plain versions count none
+
+
+def _former_bias_i8_packed(n, d_pad, span, metric, corpus_sq, inv_two,
+                           invalid, filter_mask):
+    """make_bias_i8_packed as it was, with its fill made as a tensor."""
+    dotmax, bias_clamp, sentinel, _, _ = tbs.i8_packed_layout(d_pad, span)
+    if metric == "l2":
+        f = corpus_sq.to(torch.float32) * inv_two
+        bias = torch.clamp(torch.round(f), 0, bias_clamp).to(torch.int32)
+    else:
+        bias = torch.zeros((n,), dtype=torch.int32)
+    bias = bias + dotmax
+    fill = torch.tensor(sentinel, dtype=torch.int32)
+    if invalid is not None:
+        bias = torch.where(invalid, fill, bias)
+    if filter_mask is not None:
+        bias = torch.where(filter_mask, bias, fill)
+    return bias
+
+
+def _former_bias(n, metric, corpus_sq, invalid, filter_mask):
+    """make_bias as it was, with its +inf made as a tensor."""
+    bias = (corpus_sq.to(torch.float32) if metric == "l2"
+            else torch.zeros((n,), dtype=torch.float32))
+    inf = torch.tensor(float("inf"), dtype=torch.float32)
+    if invalid is not None:
+        bias = torch.where(invalid, inf, bias)
+    if filter_mask is not None:
+        bias = torch.where(filter_mask, bias, inf)
+    return bias
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("invalid,filtered", [
+    (False, False), (True, False), (False, True), (True, True)])
+def test_scalar_fills_give_the_former_biases(rng, metric, invalid, filtered):
+    n, d_pad, span = 2 * ps.GROUP, 128, 2
+    sq = _t(rng.random(n).astype(np.float32) * 5e4)
+    inv = torch.from_numpy(rng.random(n) < 0.1) if invalid else None
+    mask = torch.from_numpy(rng.random(n) < 0.7) if filtered else None
+    inv_two = torch.tensor(0.37, dtype=torch.float32)
+    got = tbs.make_bias_i8_packed(n, d_pad, span, metric, sq, inv_two, inv,
+                                  mask)
+    want = _former_bias_i8_packed(n, d_pad, span, metric, sq, inv_two, inv,
+                                  mask)
+    assert got.dtype == want.dtype == torch.int32
+    assert torch.equal(got, want)
+    got = tbs.make_bias(n, metric, sq, inv, mask, device=_CPU)
+    want = _former_bias(n, metric, sq, inv, mask)
+    assert got.dtype == want.dtype == torch.float32
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))

@@ -6,7 +6,9 @@ mirror, a TAG field). Searches go over real sockets; the spans they leave
 in the ring are read back with ``TRACE.spans``. The fused scan serves from
 131,072 rows, so these tests route the launch to it at this size
 (``use_fused_scan`` answers yes), where K1's plain version runs on the CPU:
-the launch then records every span it records on the card.
+the launch then records every span an eager launch records on the card
+(where an unfiltered launch of up to 128 queries replays a CUDA graph
+instead, tests/test_torch_cuda.py).
 
 - one search leaves every span of its path under one request id, each
   inside its parent and in the order the work runs; an unfiltered search
@@ -71,9 +73,9 @@ ORDER = [
     ("engine.ft_search", "reader.return"),
     ("batcher.queue", "flat.search_batch"),
     ("flat.search_batch", "batcher.return"),
-    ("flat.prepare", "topk.bias"),
-    ("topk.bias", "topk.plan"),
-    ("topk.plan", "topk.scan"),
+    ("flat.prepare", "topk.plan"),
+    ("topk.plan", "topk.bias"),
+    ("topk.bias", "topk.scan"),
     ("topk.scan", "topk.select"),
     ("topk.select", "topk.rescore"),
     ("topk.rescore", "flat.sync"),
@@ -81,6 +83,8 @@ ORDER = [
 ]
 LAUNCH_SPANS = {"flat.search_batch", "flat.prepare", "topk.bias", "topk.plan",
                 "topk.scan", "topk.select", "topk.rescore", "flat.sync"}
+# a CUDA graph's spans: a launch on the CPU runs eagerly
+GRAPH_SPANS = {"topk.replay", "topk.capture"}
 
 
 @pytest.fixture(scope="module")
@@ -150,8 +154,8 @@ def spans_of(t0, commands=1):
 
 
 @pytest.mark.parametrize("flt, absent", [
-    ("*", {"query.mask"}),
-    ("@cat:{c3}", {"batcher.queue", "batcher.return"}),
+    ("*", {"query.mask"} | GRAPH_SPANS),
+    ("@cat:{c3}", {"batcher.queue", "batcher.return"} | GRAPH_SPANS),
 ], ids=["unfiltered", "filtered"])
 def test_one_search_leaves_every_span_under_one_request_id(served, fused,
                                                            flt, absent):
@@ -187,6 +191,15 @@ def test_one_search_leaves_every_span_under_one_request_id(served, fused,
     assert spans["topk.scan"][0][3] == 1
     if "query.mask" in spans:
         assert spans["query.mask"][0][3] == ROWS // 10  # rows admitted
+
+
+def test_the_graph_spans_are_named():
+    """A replayed launch records ``topk.replay``, a capturing one
+    ``topk.capture`` (ops/fused_graphs.py), each under its own id."""
+    names = list(SPAN_NAMES)
+    assert {"topk.replay", "topk.capture"} <= set(names)
+    assert len(set(names)) == len(names)
+    assert metrics.SPAN["topk.replay"] != metrics.SPAN["topk.capture"]
 
 
 def test_the_ring_holds_a_minute_at_a_thousand_requests_a_second(served,

@@ -11,7 +11,9 @@ query batch the way the JAX package does:
 - ``search.topk-mode approx`` with a bf16 or int8 mirror and a corpus the
   fused scan serves (``ops.topk.use_fused_scan``): ``flat_topk_fused``, i.e.
   the hand-written coarse scan K1 (int8) or K2 (bf16), an exact survivor
-  top-k and the fp32 rescore;
+  top-k and the fp32 rescore; unfiltered on the card at up to 128 queries,
+  a CUDA graph of it captured once per shape and snapshot and replayed
+  (ops/fused_graphs.py);
 - ``approx`` with a bf16 mirror otherwise: ``flat_topk_two_stage``;
 - else the blocked exact scan ``flat_topk``.
 
@@ -20,7 +22,8 @@ traced launch: it mints a launch id and records
 ``flat.search_batch`` (its query rows and k), ``flat.prepare`` (the queries
 copied, normalised and uploaded, the snapshot and the options read) and
 ``flat.sync`` (the host blocked on the device's results) into
-runtime/metrics.py's ``TRACE``; ``ops/`` records the launch's inner spans.
+runtime/metrics.py's ``TRACE``; ``ops/`` records the launch's inner spans
+(a replayed graph ``topk.replay`` alone).
 """
 
 from __future__ import annotations
@@ -42,11 +45,16 @@ from valkey_search_tpu_torch.indexes.vector_base import (
     VectorIndexBase,
     store_from_reference,
 )
+from valkey_search_tpu_torch.ops import fused_graphs
 from valkey_search_tpu_torch.ops import topk as topk_ops
 
 
 class FlatVectorIndex(VectorIndexBase):
     kind = "FLAT"
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._graphs = fused_graphs.FusedGraphs()
 
     @classmethod
     def from_reference(
@@ -91,20 +99,18 @@ class FlatVectorIndex(VectorIndexBase):
         t0 = clock() if launch else 0
         CTX.launch = launch
         try:
-            d, i = self._launch(queries, k, filter_mask, t0)
-            t_sync = clock() if launch else 0
-            out = d.cpu().numpy(), i.cpu().numpy()
+            out_d, out_i, t_sync = self._launch(queries, k, filter_mask, t0)
         finally:
             CTX.launch = 0
-        STATS.incr("flat_searches", out[0].shape[0])
+        STATS.incr("flat_searches", out_d.shape[0])
         if launch:
             t1 = clock()
             rid = CTX.rid
             TRACE.record(SPAN["flat.sync"], t_sync, t1, rid, launch)
             TRACE.record(SPAN["flat.search_batch"], t0, t1, rid, launch,
-                         out[0].shape[0], k)
+                         out_d.shape[0], k)
             CTX.last_launch = launch
-        return out
+        return out_d, out_i
 
     def _launch(
         self,
@@ -112,9 +118,12 @@ class FlatVectorIndex(VectorIndexBase):
         k: int,
         filter_mask: Optional[torch.Tensor],
         t0: int,
-    ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """``search_batch``'s work up to its results on the device; records
-        ``flat.prepare`` from ``t0`` when it is not 0."""
+    ) -> Tuple[np.ndarray, np.ndarray, int]:
+        """``search_batch``'s work: (dists, ids, the clock when the host
+        began to wait for them, 0 untraced); records ``flat.prepare`` from
+        ``t0`` when it is not 0. An unfiltered fused launch of up to
+        ``GRAPH_MAX_B`` queries on the card replays its CUDA graph
+        (ops/fused_graphs.py)."""
         # a copy: query blobs arrive as read-only buffers
         queries = np.array(np.atleast_2d(queries), np.float32, order="C")
         if queries.shape[1] != self.dim:
@@ -123,21 +132,20 @@ class FlatVectorIndex(VectorIndexBase):
         if self.metric == "cosine":
             mags = np.linalg.norm(queries, axis=1, keepdims=True)
             queries = queries / np.maximum(mags, 1e-30)
-        snap = self.store.device_snapshot()
+        store = self.store
+        snap, epoch = store.published()
         mode = str(config.get("search.topk-mode"))
         block_rows = int(config.get("search.flat-block-size"))
-        q = torch.from_numpy(queries).to(self.store.device)
         corpus = snap["vectors"]
+        b = queries.shape[0]
         if filter_mask is None:
             mirror = self.ivf_mirror()
             if mirror is not None:
-                if t0:
-                    TRACE.record(SPAN["flat.prepare"], t0, clock(), CTX.rid,
-                                 CTX.launch)
+                q = self._prepared(queries, t0)
                 d, i = self._ivf_search(mirror, q, k, corpus,
                                         snap["invalid"])
-                STATS.incr("ivf_served_searches", queries.shape[0])
-                return d, i
+                STATS.incr("ivf_served_searches", b)
+                return _fetched(d, i)
         else:
             filter_mask = _fit_mask(filter_mask, corpus.shape[0])
         common = dict(k=k, metric=self.metric, corpus_sq=snap["norms_sq"],
@@ -147,28 +155,55 @@ class FlatVectorIndex(VectorIndexBase):
             and ("vectors_lp" in snap or "vectors_i8" in snap)
             and topk_ops.use_fused_scan(corpus.shape[0], filter_mask, corpus)
         ):
-            span = int(config.get("search.scan-span")) or None
-            coarse = int(config.get("search.scan-coarse-factor")) or None
-            if t0:
-                TRACE.record(SPAN["flat.prepare"], t0, clock(), CTX.rid,
-                             CTX.launch)
-            return topk_ops.flat_topk_fused(
-                q, corpus, snap.get("vectors_lp"),
-                block_rows=max(block_rows, corpus.shape[0]),
+            fused = dict(
+                corpus_lp=snap.get("vectors_lp"),
                 corpus_i8=snap.get("vectors_i8"),
                 i8_scale=snap.get("i8_scale"),
-                span=span, coarse_factor=coarse, **common,
+                block_rows=max(block_rows, corpus.shape[0]),
+                span=int(config.get("search.scan-span")) or None,
+                coarse_factor=(int(config.get("search.scan-coarse-factor"))
+                               or None),
+                **common,
             )
-        if t0:
-            TRACE.record(SPAN["flat.prepare"], t0, clock(), CTX.rid,
-                         CTX.launch)
+            if fused_graphs.takes_graph(b, corpus.device,
+                                        filter_mask is not None):
+                plan = topk_ops.fused_plan(
+                    b, corpus, fused["corpus_lp"], fused["corpus_i8"],
+                    fused["block_rows"], fused["coarse_factor"],
+                    fused["span"])
+                if t0:
+                    TRACE.record(SPAN["flat.prepare"], t0, clock(), CTX.rid,
+                                 CTX.launch)
+                    t0 = 0  # recorded: not again if the launch runs eagerly
+                out = self._graphs.search(
+                    store, epoch, fused_graphs.graph_key(b, k, self.metric,
+                                                         plan),
+                    queries, corpus.device,
+                    lambda q: topk_ops.flat_topk_fused(q, corpus, plan=plan,
+                                                       **fused))
+                if out is not None:
+                    return out
+            q = self._prepared(queries, t0)
+            return _fetched(*topk_ops.flat_topk_fused(q, corpus, **fused))
+        q = self._prepared(queries, t0)
         if mode == "approx" and "vectors_lp" in snap:
-            return topk_ops.flat_topk_two_stage(
+            d, i = topk_ops.flat_topk_two_stage(
                 q, corpus, snap["vectors_lp"], block_rows=block_rows,
                 **common,
             )
-        return topk_ops.flat_topk(q, corpus, block_rows=block_rows,
-                                  mode=mode, **common)
+        else:
+            d, i = topk_ops.flat_topk(q, corpus, block_rows=block_rows,
+                                      mode=mode, **common)
+        return _fetched(d, i)
+
+    def _prepared(self, queries: np.ndarray, t0: int) -> torch.Tensor:
+        """The queries uploaded; ``flat.prepare`` recorded from ``t0`` when
+        it is not 0."""
+        q = torch.from_numpy(queries).to(self.store.device)
+        if t0:
+            TRACE.record(SPAN["flat.prepare"], t0, clock(), CTX.rid,
+                         CTX.launch)
+        return q
 
     def search(
         self,
@@ -180,6 +215,14 @@ class FlatVectorIndex(VectorIndexBase):
         d, i = self.search_batch(np.atleast_2d(query), k,
                                  filter_mask=filter_mask)
         return self.neighbors_to_keys(d[0], i[0])
+
+
+def _fetched(d: torch.Tensor,
+             i: torch.Tensor) -> Tuple[np.ndarray, np.ndarray, int]:
+    """A launch's results copied to the host, with the clock when the host
+    began to wait for them (0 outside a traced launch)."""
+    t_sync = clock() if CTX.launch else 0
+    return d.cpu().numpy(), i.cpu().numpy(), t_sync
 
 
 def _fit_mask(mask: torch.Tensor, cap: int) -> torch.Tensor:

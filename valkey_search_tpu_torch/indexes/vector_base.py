@@ -167,6 +167,11 @@ class HostVectorStore:
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(arr).to(self.device, copy=True)
 
+    def published(self) -> Tuple[Dict[str, torch.Tensor], int]:
+        """``device_snapshot()`` and the epoch it was published at."""
+        with self._lock:
+            return self.device_snapshot(), self.epoch
+
     def device_snapshot(self) -> Dict[str, torch.Tensor]:
         """Publish the current state to the device; returns the mirror."""
         with self._lock:

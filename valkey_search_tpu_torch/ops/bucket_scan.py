@@ -39,9 +39,10 @@ the plain version), on the clock the device trace is mapped onto.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import threading
-from typing import Dict, Optional, Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 import torch
 
@@ -56,7 +57,10 @@ GROUP = 16384  # rows per group of the bf16 scan (128 chunks of 128 rows)
 _INT32_MAX = 2**31 - 1
 
 # one count per kernel variant; a wrapper adds one where it launches its
-# CUDA kernel and nowhere else (the plain version is not counted)
+# CUDA kernel and nowhere else (the plain version is not counted). A CUDA
+# graph's capture runs no kernel: it counts its kernels into the thread's
+# ``captured_launches``, and each replay of the graph adds them
+# (``add_launches``).
 _launch_lock = threading.Lock()
 LAUNCHES: Dict[str, int] = {
     "bucket_scan_i8_packed[pre_shift=0]": 0,
@@ -66,9 +70,38 @@ LAUNCHES: Dict[str, int] = {
 }
 
 
+class _Captured(threading.local):
+    counts: Optional[Dict[str, int]] = None
+
+
+_CAPTURED = _Captured()
+
+
 def _count_launch(name: str) -> None:
+    if torch.cuda.is_current_stream_capturing():
+        if _CAPTURED.counts is not None:
+            _CAPTURED.counts[name] = _CAPTURED.counts.get(name, 0) + 1
+        return
     with _launch_lock:
         LAUNCHES[name] += 1
+
+
+@contextlib.contextmanager
+def captured_launches() -> Iterator[Dict[str, int]]:
+    """The kernels this thread captures into a CUDA graph inside the block,
+    counted by name into the dict it yields."""
+    _CAPTURED.counts = counts = {}
+    try:
+        yield counts
+    finally:
+        _CAPTURED.counts = None
+
+
+def add_launches(counts: Dict[str, int]) -> None:
+    """Count the launches ``counts`` holds (a replayed graph's kernels)."""
+    with _launch_lock:
+        for name, n in counts.items():
+            LAUNCHES[name] += n
 
 
 def reset_launches() -> None:
@@ -143,16 +176,16 @@ def make_bias_i8_packed(
             raise ValueError("l2 int8 bias needs corpus_sq")
         f = corpus_sq.to(torch.float32) * inv_two_scales
         bias = torch.clamp(torch.round(f), 0, bias_clamp).to(torch.int32)
-        device = corpus_sq.device
     else:
-        device = inv_two_scales.device
-        bias = torch.zeros((n,), dtype=torch.int32, device=device)
+        bias = torch.zeros((n,), dtype=torch.int32,
+                           device=inv_two_scales.device)
     bias = bias + dotmax
-    fill = torch.tensor(sentinel, dtype=torch.int32, device=device)
+    # a Python scalar, not a tensor made from one: no host copy, so a CUDA
+    # graph can capture the bias
     if invalid is not None:
-        bias = torch.where(invalid, fill, bias)
+        bias = torch.where(invalid, sentinel, bias)
     if filter_mask is not None:
-        bias = torch.where(filter_mask, bias, fill)
+        bias = torch.where(filter_mask, bias, sentinel)
     return bias
 
 
@@ -172,11 +205,10 @@ def make_bias(
         bias = corpus_sq.to(torch.float32)
     else:
         bias = torch.zeros((n,), dtype=torch.float32, device=device)
-    inf = torch.tensor(INF, dtype=torch.float32, device=bias.device)
     if invalid is not None:
-        bias = torch.where(invalid, inf, bias)
+        bias = torch.where(invalid, INF, bias)
     if filter_mask is not None:
-        bias = torch.where(filter_mask, bias, inf)
+        bias = torch.where(filter_mask, bias, INF)
     return bias
 
 

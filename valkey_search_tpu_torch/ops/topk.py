@@ -13,15 +13,15 @@ exact selection costs little, and the port then returns the same ids as the
 JAX package on its CPU path.
 
 Inside a traced launch (runtime/metrics.py ``CTX.launch``) the fused scan
-records ``topk.bias`` (the scan's inputs: the queries quantized or scaled,
-the bias and its padding), ``topk.plan`` (the survivor budget, which asks
-the device for its memory, and the block split), ``topk.select`` and
-``topk.rescore`` into ``TRACE``, and ops/bucket_scan.py ``topk.scan``.
+records ``topk.plan`` (``fused_plan``: the mirror, span and coarse factor,
+the survivor budget and the block split), ``topk.bias`` (the scan's inputs:
+the queries quantized or scaled, the bias and its padding), ``topk.select``
+and ``topk.rescore`` into ``TRACE``, and ops/bucket_scan.py ``topk.scan``.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -146,46 +146,49 @@ def use_fused_scan(cap: int, filter_mask: Optional[torch.Tensor],
     return corpus.is_cuda
 
 
+# a device's total memory, read once: the survivor budget's base
+_TOTAL_MEMORY: Dict[torch.device, int] = {}
+
+
 def _memory_limit(device: torch.device) -> int:
-    if device.type == "cuda":
-        return torch.cuda.mem_get_info(device)[1]
-    return _DEFAULT_MEMORY_LIMIT
+    if device.type != "cuda":
+        return _DEFAULT_MEMORY_LIMIT
+    total = _TOTAL_MEMORY.get(device)
+    if total is None:
+        total = _TOTAL_MEMORY[device] = torch.cuda.mem_get_info(device)[1]
+    return total
 
 
-def flat_topk_fused(
-    queries: torch.Tensor,
-    corpus: torch.Tensor,      # fp32 [cap, d]
-    corpus_lp: Optional[torch.Tensor],  # bf16 [cap, d]; None when int8 serves
-    k: int,
-    metric: str = "l2",
-    corpus_sq: Optional[torch.Tensor] = None,
-    invalid: Optional[torch.Tensor] = None,
-    filter_mask: Optional[torch.Tensor] = None,  # 1-D only (shared prefilter)
+class FusedPlan(NamedTuple):
+    """The host's choices that shape a fused launch's work, besides B, k
+    and the metric: the mirror K1 (int8) or K2 (bf16) scans, the int8
+    survivor span, the coarse factor, the rows the bias covers (the
+    capacity padded to the scan's quantum) and the rows of one coarse block
+    (the survivor budget's split)."""
+
+    int8: bool
+    span: int
+    coarse_factor: int
+    n: int
+    block_rows: int
+
+
+def fused_plan(
+    b: int,
+    corpus: torch.Tensor,
+    corpus_lp: Optional[torch.Tensor],
+    corpus_i8: Optional[torch.Tensor],
     block_rows: int = 262144,
     coarse_factor: Optional[int] = None,
-    corpus_i8: Optional[torch.Tensor] = None,  # int8 [cap, d] mirror
-    i8_scale: Optional[torch.Tensor] = None,   # f32 scalar corpus quant scale
-    span: Optional[int] = None,  # int8 survivor granularity (None = auto)
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Two-stage k-NN with the coarse scan fused into K1 (int8 mirror) or K2
-    (bf16 mirror): one survivor key per bucket, an exact top-k of
-    coarse_factor*k survivors, then the exact fp32 rescore.
-
-    The constants that change results (coarse_factor, span, the layout) are
-    the JAX package's, so both return the same candidates."""
-    cap, d = corpus.shape
-    b = queries.shape[0]
-    dev = corpus.device
-    launch = CTX.launch
-    if filter_mask is not None and filter_mask.dim() != 1:
-        raise ValueError("flat_topk_fused needs a 1-D filter mask")
-    if metric == "l2" and corpus_sq is None:
-        corpus_sq = dist_ops.squared_norms(
-            corpus_lp if corpus_lp is not None else corpus)
-    queries = queries.to(torch.float32)
-    alpha = -2.0 if metric == "l2" else -1.0
-    positive = metric == "l2"
+    span: Optional[int] = None,
+) -> FusedPlan:
+    """``flat_topk_fused``'s plan for ``b`` queries: host arithmetic alone
+    (the device's total memory is read once), so it can be made outside a
+    CUDA graph's capture and key the graph."""
+    cap = corpus.shape[0]
     use_i8 = corpus_i8 is not None
+    if not use_i8 and corpus_lp is None:
+        raise ValueError("flat_topk_fused needs corpus_lp or corpus_i8")
     if coarse_factor is None:
         # measured frontier points of the JAX package (ops/topk.py there)
         if use_i8:
@@ -197,13 +200,6 @@ def flat_topk_fused(
                 coarse_factor = 5
         else:
             coarse_factor = 3
-    kc = min(coarse_factor * k, cap)
-    d_pad = bs.round_up(d, 128)   # the layout constants' dim
-    # K1 reads 16-byte row pieces; K2's TMA boxes need only 16-byte rows
-    # and zero-fill the k-step themselves, so a bf16 corpus at d % 8 == 0
-    # is scanned in place
-    pad_d = -d % (16 if use_i8 else 8)
-
     if use_i8:
         if span is None:
             # survivor width >= ~1k columns: span 8 from 1M rows, 4 from
@@ -220,6 +216,89 @@ def flat_topk_fused(
         quantum = bs.GROUP
     n = cap + (-cap % quantum)
     block_rows = bs.round_up(block_rows, quantum)
+
+    # One block is fastest, but the survivors of a block take B * width/128
+    # * 8 bytes; shrink the block to the largest quantum-aligned divisor of
+    # n that fits beside the resident mirrors in 70% of device memory.
+    resident = corpus.nbytes
+    if corpus_lp is not None:
+        resident += corpus_lp.nbytes
+    if use_i8:
+        resident += corpus_i8.nbytes
+    surv_budget = max(1 << 30,
+                      int(_memory_limit(corpus.device) * 0.70) - resident)
+    bs_rows = min(block_rows, n)
+
+    def _surv_bytes(width):
+        return b * (width // (bs.BUCKET * span)) * 8
+
+    if _surv_bytes(bs_rows) > surv_budget or n % bs_rows:
+        m = 2
+        while not (
+            n % m == 0
+            and (n // m) % quantum == 0
+            and n // m <= max(bs_rows, quantum)
+            and _surv_bytes(n // m) <= surv_budget
+        ):
+            m += 1
+            if m > n // quantum:
+                raise ValueError(
+                    f"no survivor-budget block split for n={n}, B={b}")
+        bs_rows = n // m
+    return FusedPlan(use_i8, span, coarse_factor, n, bs_rows)
+
+
+def flat_topk_fused(
+    queries: torch.Tensor,
+    corpus: torch.Tensor,      # fp32 [cap, d]
+    corpus_lp: Optional[torch.Tensor],  # bf16 [cap, d]; None when int8 serves
+    k: int,
+    metric: str = "l2",
+    corpus_sq: Optional[torch.Tensor] = None,
+    invalid: Optional[torch.Tensor] = None,
+    filter_mask: Optional[torch.Tensor] = None,  # 1-D only (shared prefilter)
+    block_rows: int = 262144,
+    coarse_factor: Optional[int] = None,
+    corpus_i8: Optional[torch.Tensor] = None,  # int8 [cap, d] mirror
+    i8_scale: Optional[torch.Tensor] = None,   # f32 scalar corpus quant scale
+    span: Optional[int] = None,  # int8 survivor granularity (None = auto)
+    plan: Optional[FusedPlan] = None,  # made by the caller: the three above
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Two-stage k-NN with the coarse scan fused into K1 (int8 mirror) or K2
+    (bf16 mirror): one survivor key per bucket, an exact top-k of
+    coarse_factor*k survivors, then the exact fp32 rescore.
+
+    The constants that change results (coarse_factor, span, the layout) are
+    the JAX package's, so both return the same candidates. ``plan``
+    (``fused_plan``) takes the place of ``block_rows``, ``coarse_factor``
+    and ``span``; past it the launch enqueues device work alone, with no
+    host copy or synchronisation, so a CUDA graph can capture it."""
+    cap, d = corpus.shape
+    b = queries.shape[0]
+    dev = corpus.device
+    launch = CTX.launch
+    if filter_mask is not None and filter_mask.dim() != 1:
+        raise ValueError("flat_topk_fused needs a 1-D filter mask")
+    if plan is None:
+        t_plan = clock() if launch else 0
+        plan = fused_plan(b, corpus, corpus_lp, corpus_i8, block_rows,
+                          coarse_factor, span)
+        if t_plan:
+            TRACE.record(SPAN["topk.plan"], t_plan, clock(), CTX.rid, launch,
+                         plan.block_rows)
+    use_i8, span, coarse_factor, n, block_rows = plan
+    if metric == "l2" and corpus_sq is None:
+        corpus_sq = dist_ops.squared_norms(
+            corpus_lp if corpus_lp is not None else corpus)
+    queries = queries.to(torch.float32)
+    alpha = -2.0 if metric == "l2" else -1.0
+    positive = metric == "l2"
+    kc = min(coarse_factor * k, cap)
+    d_pad = bs.round_up(d, 128)   # the layout constants' dim
+    # K1 reads 16-byte row pieces; K2's TMA boxes need only 16-byte rows
+    # and zero-fill the k-step themselves, so a bf16 corpus at d % 8 == 0
+    # is scanned in place
+    pad_d = -d % (16 if use_i8 else 8)
 
     t_inputs = clock() if launch else 0
     if use_i8:
@@ -239,8 +318,6 @@ def flat_topk_fused(
         bias = torch.nn.functional.pad(bias, (0, n - cap), value=sentinel)
         c_scan = corpus_i8
     else:
-        if corpus_lp is None:
-            raise ValueError("flat_topk_fused needs corpus_lp or corpus_i8")
         q_scan = (queries * alpha).to(torch.bfloat16)
         qsq = (dist_ops.squared_norms(queries) if positive
                else torch.zeros(b, dtype=torch.float32, device=dev))
@@ -248,42 +325,12 @@ def flat_topk_fused(
                             device=dev)
         bias = torch.nn.functional.pad(bias, (0, n - cap), value=INF)
         c_scan = corpus_lp
-    t_plan = clock() if launch else 0
-    if t_inputs:
-        TRACE.record(SPAN["topk.bias"], t_inputs, t_plan, CTX.rid, launch, n)
     if pad_d:
         q_scan = torch.nn.functional.pad(q_scan, (0, pad_d))
         c_scan = torch.nn.functional.pad(c_scan, (0, pad_d))
     q_scan = q_scan.contiguous()
-
-    # One block is fastest, but the survivors of a block take B * width/128
-    # * 8 bytes; shrink the block to the largest quantum-aligned divisor of
-    # n that fits beside the resident mirrors in 70% of device memory.
-    resident = corpus.nbytes
-    if corpus_lp is not None:
-        resident += corpus_lp.nbytes
-    if use_i8:
-        resident += corpus_i8.nbytes
-    surv_budget = max(1 << 30, int(_memory_limit(dev) * 0.70) - resident)
-    bs_rows = min(block_rows, n)
-
-    def _surv_bytes(width):
-        return b * (width // (bs.BUCKET * span)) * 8
-
-    if _surv_bytes(bs_rows) > surv_budget or n % bs_rows:
-        m = 2
-        while not (
-            n % m == 0
-            and (n // m) % quantum == 0
-            and n // m <= max(bs_rows, quantum)
-            and _surv_bytes(n // m) <= surv_budget
-        ):
-            m += 1
-            if m > n // quantum:
-                raise ValueError(
-                    f"no survivor-budget block split for n={n}, B={b}")
-        bs_rows = n // m
-    block_rows = bs_rows
+    if t_inputs:
+        TRACE.record(SPAN["topk.bias"], t_inputs, clock(), CTX.rid, launch, n)
 
     def coarse_block(row0: int):
         c_blk = c_scan[row0:min(row0 + block_rows, cap)]
@@ -315,9 +362,6 @@ def flat_topk_fused(
                          launch)
         return bd, bi
 
-    if t_plan:
-        TRACE.record(SPAN["topk.plan"], t_plan, clock(), CTX.rid, launch,
-                     block_rows)
     if n <= block_rows:
         cd, ci = coarse_block(0)
     else:

@@ -175,6 +175,8 @@ SPAN_NAMES: Tuple[str, ...] = (
     "topk.scan",          # the K1b / K2 launch's host enqueue; arg: rows
     "topk.select",        # survivor top-k, decode and merge
     "topk.rescore",       # the fp32 rescore's enqueue
+    "topk.replay",        # a CUDA graph's copy-in and replay enqueue
+    "topk.capture",       # a CUDA graph's warm-up launch and capture
     "flat.sync",          # the host blocked on the device's results
 )
 SPAN = {name: n for n, name in enumerate(SPAN_NAMES, 1)}
